@@ -50,7 +50,7 @@ def calc_dist_matrix(cell_table, save_path, fov_id=settings.FOV_ID,
         labels = list(fov_table[label_id])
         # shape-bucket the device program: every FOV has a different cell
         # count, and an unpadded call compiles a fresh executable per FOV
-        # (~100 remote compiles per cohort on the attach). Extra zero rows
+        # (~100 compiles per 100-FOV cohort). Extra zero rows
         # don't change the real pairwise block, which is sliced out.
         n = centroids.shape[0]
         nb = dist_ops.shape_bucket(n)
@@ -158,9 +158,9 @@ def compute_close_cell_num(dist_mat, dist_lim, analysis_type,
                            cell_type_col=settings.CELL_TYPE_NUM):
     """marker×marker counts of close-cell interactions.
 
-    TPU redesign of reference :174-274: positive-label membership becomes a
+    Redesign of reference :174-274: positive-label membership becomes a
     (markers × cells) indicator matrix P; the full close_num matrix is the
-    single fused product P · D_bin · Pᵀ on the MXU instead of the symmetric
+    single fused matrix product P · D_bin · Pᵀ instead of the symmetric
     per-pair subset loop.
     """
     verify_in_list(analysis_type=analysis_type,
@@ -251,7 +251,7 @@ def compute_kmeans_inertia(neighbor_mat_data, min_k=2, max_k=10, seed=42):
 
 def compute_kmeans_silhouette(neighbor_mat_data, min_k=2, max_k=10, seed=42,
                               subsample=None):
-    """Silhouette-score sweep over k (labels from the TPU k-means; score via
+    """Silhouette-score sweep over k (labels from the device k-means; score via
     the blocked device silhouette kernel, `ops/distances.silhouette_score` —
     sklearn-oracle-tested; reference :376-427). The per-cluster `subsample`
     semantics (sample-with-replacement when a cluster is smaller than the

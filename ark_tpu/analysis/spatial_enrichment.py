@@ -1,11 +1,11 @@
-"""Pairwise spatial enrichment with TPU-vmapped permutation tests.
+"""Pairwise spatial enrichment with vmapped device permutation tests.
 
 The reference exposes the core utilities (`spatial_analysis_utils.py:119-274`:
 positive-label selection + close-cell counting) that its pairwise-enrichment
 notebook drives (README.md:97; the notebook itself is absent from the
-snapshot). This module rebuilds that workflow TPU-first: the observed
-marker×marker close-interaction matrix and the full bootstrap null
-distribution are computed as one batched einsum on the MXU —
+snapshot). This module rebuilds that workflow for an accelerator: the
+observed marker×marker close-interaction matrix and the full bootstrap null
+distribution are computed as one batched matrix product —
 `close_num[b] = P_b · D_bin · P_bᵀ` over B independently permuted positive-
 label matrices — instead of a Python loop over permutations.
 
@@ -64,7 +64,7 @@ def _permutation_null(dist_bin: jax.Array, pos_matrix: jax.Array,
         order = jnp.argsort(perm_all >= n_real, stable=True)
         perm = jnp.take(perm_all, order)             # reals first, uniform
         p = jnp.take(pos_matrix, perm, axis=1)                   # (M, N)
-        return p @ dist_bin @ p.T                                # MXU x2
+        return p @ dist_bin @ p.T                                # 2 matmuls
 
     keys = jax.random.split(jax.random.PRNGKey(seed), bootstrap_num)
     return jax.lax.map(one, keys)                                # (B, M, M)

@@ -5,8 +5,8 @@ Beyond the pandas round trip the reference uses, this module exposes an
 arrow-Table path (`read_table`/`write_table`/`table_set_columns`): the
 per-FOV pixie passes each rewrite a ~70 MB frame to add or update one or
 two label columns, and converting every untouched column through pandas
-both ways made host IO — not the TPU — the 100-FOV cohort bottleneck
-(PERF.md endurance run). Passthrough columns stay as arrow buffers;
+both ways made host IO — not the device — the bottleneck of a 100-FOV
+cohort. Passthrough columns stay as arrow buffers;
 computed columns are converted with the same `Array.from_pandas` path
 `write_feather(df)` uses, so files read back identically either way."""
 

@@ -2,7 +2,7 @@
 
 Re-provides the `alpineer.load_utils` capability surface (SURVEY.md §1 L0:
 load_imgs_from_tree / load_imgs_from_dir / load_tiled_img_data /
-get_tiled_fov_names) with a TPU-friendly contract: loaders return a dense
+get_tiled_fov_names) with a device-friendly contract: loaders return a dense
 float32/int numpy block plus coordinate labels (via ark_tpu DataArray), ready
 for a single host→device transfer of whole FOV batches.
 
@@ -21,7 +21,7 @@ from typing import List, Optional
 import numpy as np
 
 from ark_tpu.io import io_utils
-from ark_tpu.io.image_utils import read_image
+from ark_tpu.io.image_utils import image_size, read_image
 from ark_tpu.utils.labeled_array import DataArray
 
 
@@ -67,17 +67,14 @@ def load_imgs_from_tree(data_dir: str, img_sub_folder: Optional[str] = None,
     if len(channel_files) == 0:
         raise ValueError(f"No channel images found in {first_dir}")
 
-    # header-only size scan (PIL opens lazily): lets the output be
-    # preallocated and filled FOV-by-FOV instead of keeping every block in
-    # a list alongside the output — the list+copy pattern doubled peak
-    # host memory on multi-GB cohorts
-    from PIL import Image
-
+    # header-only size scan: lets the output be preallocated and filled
+    # FOV-by-FOV instead of keeping every block in a list alongside the
+    # output — the list+copy pattern doubled peak host memory on multi-GB
+    # cohorts
     max_h = max_w = 0
     for fov in fovs:
         path = os.path.join(data_dir, fov, img_sub_folder, channel_files[0])
-        with Image.open(path) as im:
-            w, h = im.size
+        h, w = image_size(path)
         max_h, max_w = max(max_h, h), max(max_w, w)
     if max_image_size is not None:
         max_h = max_w = max_image_size

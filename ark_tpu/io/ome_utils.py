@@ -16,7 +16,7 @@ from typing import List, Optional
 import numpy as np
 
 from ark_tpu.io import io_utils
-from ark_tpu.io.image_utils import read_image, save_image
+from ark_tpu.io.image_utils import read_image, save_image, tiff_description
 
 
 def _ome_xml(channel_names: List[str], shape, dtype) -> str:
@@ -47,13 +47,8 @@ def fov_to_ome(fov_dir: str, ome_save_dir: str,
     fov_name = fov_name or os.path.basename(os.path.normpath(fov_dir))
     os.makedirs(ome_save_dir, exist_ok=True)
     out_path = os.path.join(ome_save_dir, f"{fov_name}.ome.tiff")
-    import imageio.v3 as iio
-    try:
-        iio.imwrite(out_path, stack, description=_ome_xml(
-            channels, stack.shape[1:], stack.dtype))
-    except TypeError:
-        # this imageio TIFF writer has no description kwarg
-        iio.imwrite(out_path, stack)
+    save_image(out_path, stack, description=_ome_xml(
+        channels, stack.shape[1:], stack.dtype))
     # sidecar with channel names (robust to TIFF-tag roundtrip limitations)
     with open(out_path + ".channels.txt", "w") as f:
         f.write("\n".join(channels))
@@ -65,9 +60,7 @@ def _read_channel_names(ome_path: str, n_channels: int) -> List[str]:
     if os.path.exists(sidecar):
         return open(sidecar).read().splitlines()
     try:
-        import imageio.v3 as iio
-        meta = iio.immeta(ome_path)
-        desc = meta.get("description", "") or ""
+        desc = tiff_description(ome_path)
         names = re.findall(r'Name="([^"]+)"', desc)
         if len(names) == n_channels:
             return names

@@ -1,4 +1,4 @@
-"""Convert published deepcell-tf Mesmer weights (Keras HDF5) to flax `.npz`.
+"""Convert published deepcell-tf Mesmer weights (Keras HDF5) to `.npz`.
 
 The reference obtains trained Mesmer predictions from the hosted DeepCell
 service (`src/ark/utils/deepcell_service_utils.py:214-343` — zip upload →
@@ -260,7 +260,7 @@ def convert_file(h5_path: str, npz_path: str) -> None:
     converted = convert(read_keras_h5(h5_path), variables)
     # no dtype in the config: params are stored f32, but inference should
     # run at Mesmer's bf16 default (embedding 'float32' here would silently
-    # pin every converted-checkpoint forward to 1/8 MXU rate)
+    # pin every converted-checkpoint forward to f32)
     unet.save_params_npz(npz_path, converted, config=None)
 
 

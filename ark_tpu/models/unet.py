@@ -1,8 +1,8 @@
-"""Mesmer-style segmentation network: ResNet50 + FPN + semantic heads, in flax.
+"""Mesmer-style segmentation network: ResNet50 + FPN + semantic heads, in JAX.
 
 Replaces the reference's remote DeepCell/Mesmer REST service
 (`src/ark/utils/deepcell_service_utils.py:95-343` — zip upload → GPU predict →
-poll → download) with an in-process JAX model so FOV batches run on TPU.
+poll → download) with an in-process JAX model so FOV batches run on the accelerator.
 
 Architecture follows the published Mesmer configuration (deepcell-tf
 PanopticNet topology, transcribed in tests/models/deepcell_layer_manifest.json):
@@ -18,31 +18,30 @@ loaded from an `.npz` (the zero-egress build cannot fetch published weights;
 `ark_tpu.models.convert_deepcell`, whose layer-name map targets the same
 manifest).
 
-TPU notes: all convs run in bfloat16 by default with float32 params/outputs
-(MXU-friendly); shapes are static; the whole forward jits into one program.
+All convs run in bfloat16 by default with float32 params/outputs; shapes
+are static; the whole forward jits into one program. The layers are plain
+`jax.lax` calls over an explicit variables pytree (no module library), with
+the parameter layout and random init of the flax version this network was
+first written in, so `.npz` checkpoints load unchanged.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import hashlib
 from typing import Any, Dict, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 
 # benchmarking/debug switch (benchmarks/head_fold_ab.py A/Bs it
-# in-process): True reproduces the old behavior of upcasting every
-# pyramid/head resize to float32. XLA lowers bilinear resize to dense
-# interpolation-matrix matmuls; in f32 those run at 1/8 MXU rate, and the
-# result is immediately rounded back to bf16 anyway — resizing in the
-# model dtype keeps the matmuls on the fast path (the 2× weights 0.25/0.75
-# are exact in bf16 and the MXU accumulates in f32). An elementwise
-# shifted-lerp formulation was tried and LOST 1.7× to the matmul lowering
-# (interleave relayouts; same lesson as the BMU argmin — see
-# benchmarks/head_fold_ab.py history and PERF.md).
+# in-process): True upcasts every pyramid/head resize to float32. The
+# default resizes in the model dtype: the result is rounded back to it
+# anyway, and the 2× weights 0.25/0.75 are exact in bf16. Which is faster
+# on the GPU is not measured.
 RESIZE_IN_F32 = False
 
 # keras/TF forward-semantics constants the converter contract depends on
@@ -81,77 +80,170 @@ def _bilinear_resize(x: jax.Array, th: int, tw: int,
     return x.astype(out_dtype)
 
 
-class BottleneckBlock(nn.Module):
-    features: int
-    strides: Tuple[int, int] = (1, 1)
-    projection: bool = False
-    dtype: Any = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        norm = functools.partial(nn.BatchNorm, use_running_average=not train,
-                                 momentum=0.9, epsilon=BACKBONE_BN_EPSILON,
-                                 dtype=self.dtype)
-        residual = x
-        y = nn.Conv(self.features, (1, 1), strides=self.strides,
-                    use_bias=False, dtype=self.dtype)(x)
-        y = norm()(y)
-        y = nn.relu(y)
-        y = nn.Conv(self.features, (3, 3), padding="SAME", use_bias=False,
-                    dtype=self.dtype)(y)
-        y = norm()(y)
-        y = nn.relu(y)
-        y = nn.Conv(self.features * 4, (1, 1), use_bias=False,
-                    dtype=self.dtype)(y)
-        y = norm(scale_init=nn.initializers.zeros)(y)
-        if self.projection or residual.shape[-1] != self.features * 4:
-            residual = nn.Conv(self.features * 4, (1, 1),
-                               strides=self.strides, use_bias=False,
-                               dtype=self.dtype)(residual)
-            residual = norm()(residual)
-        return nn.relu(y + residual)
+_CONV_DIMS = jax.lax.ConvDimensionNumbers((0, 3, 1, 2), (3, 2, 0, 1),
+                                          (0, 3, 1, 2))    # NHWC / HWIO
+_lecun_normal = jax.nn.initializers.lecun_normal()
+_zeros = jax.nn.initializers.zeros
+_ones = jax.nn.initializers.ones
 
 
-class ResNet50Backbone(nn.Module):
-    """Standard ResNet50 stages; returns C2..C5 feature maps (strides 4..32).
-
-    `stage_sizes`/`base_width` shrink the backbone for the mini configuration
-    (tests, synthetic training demos); defaults are exact ResNet50."""
-    dtype: Any = jnp.bfloat16
-    stage_sizes: Sequence[int] = (3, 4, 6, 3)
-    base_width: int = 64
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        norm = functools.partial(nn.BatchNorm, use_running_average=not train,
-                                 momentum=0.9, epsilon=BACKBONE_BN_EPSILON,
-                                 dtype=self.dtype)
-        # keras ResNet50 stem: ZeroPadding2D(3) + 7x7/2 VALID conv — an
-        # explicit (3, 3) pad, NOT 'SAME' (SAME on an even input pads
-        # (2, 3): one row/col shifted vs the published weights)
-        x = nn.Conv(self.base_width, (7, 7), strides=(2, 2),
-                    padding=[(3, 3), (3, 3)], use_bias=False,
-                    dtype=self.dtype)(x)
-        x = norm()(x)
-        x = nn.relu(x)
-        # keras pool1: ZeroPadding2D(1) + 3x3/2 VALID maxpool. flax pads
-        # with -inf where keras pads with ZEROS — identical here because
-        # the input is post-relu (>= 0, so real values always dominate a
-        # zero pad); pinned by tests/models/test_keras_semantics.py
-        x = nn.max_pool(x, (3, 3), strides=(2, 2), padding=((1, 1), (1, 1)))
-        feats = []
-        for i, n_blocks in enumerate(self.stage_sizes):
-            features = self.base_width * (2 ** i)
-            strides = (1, 1) if i == 0 else (2, 2)
-            x = BottleneckBlock(features, strides=strides, projection=True,
-                                dtype=self.dtype)(x, train)
-            for _ in range(n_blocks - 1):
-                x = BottleneckBlock(features, dtype=self.dtype)(x, train)
-            feats.append(x)
-        return feats  # [C2, C3, C4, C5]
+def _fold_in_path(key: jax.Array, path: Tuple) -> jax.Array:
+    """Fold a module path (names, then a per-module counter) into `key`
+    through the first 4 bytes of its SHA-1. This is flax's per-parameter
+    key derivation, so `init_mesmer(seed)` draws the same weights as the
+    flax version of this network did."""
+    m = hashlib.sha1()
+    for x in path:
+        m.update(x.encode("utf-8") if isinstance(x, str)
+                 else x.to_bytes((x.bit_length() + 7) // 8, "big"))
+    return jax.random.fold_in(
+        key, jnp.uint32(int.from_bytes(m.digest()[:4], "big")))
 
 
-class FPN(nn.Module):
+class _Scope:
+    """One module's slice of the variables pytree ({'params', 'batch_stats'}).
+
+    With a `key` (init) missing parameters are drawn and stored; without one
+    every read must hit. In training mode BatchNorm uses batch statistics
+    and writes its new running averages into `new_stats`."""
+
+    def __init__(self, params, stats, key, path, train, new_stats):
+        self.params, self.stats, self.key = params, stats, key
+        self.path, self.train, self.new_stats = path, train, new_stats
+        self._n_params = 0
+
+    def child(self, name: str) -> "_Scope":
+        init = self.key is not None
+        return _Scope(
+            self.params.setdefault(name, {}) if init else self.params[name],
+            self.stats.setdefault(name, {}) if init
+            else self.stats.get(name, {}),
+            self.key, self.path + (name,), self.train,
+            None if self.new_stats is None
+            else self.new_stats.setdefault(name, {}))
+
+    def param(self, name: str, init_fn, shape) -> jax.Array:
+        if self.key is not None and name not in self.params:
+            self._n_params += 1
+            self.params[name] = init_fn(
+                _fold_in_path(self.key, self.path + (self._n_params,)),
+                shape, jnp.float32)
+        return self.params[name]
+
+
+def _conv(s: _Scope, name: str, x, features: int, kernel: Tuple[int, int],
+          dtype, strides=(1, 1), padding="SAME", use_bias: bool = True):
+    """2-D convolution, NHWC input, HWIO kernel, computed in `dtype`."""
+    s = s.child(name)
+    k = s.param("kernel", _lecun_normal, kernel + (x.shape[-1], features))
+    b = s.param("bias", _zeros, (features,)) if use_bias else None
+    y = jax.lax.conv_general_dilated(
+        x.astype(dtype), k.astype(dtype), strides, padding,
+        lhs_dilation=(1, 1), rhs_dilation=(1, 1),
+        dimension_numbers=_CONV_DIMS, feature_group_count=1)
+    if b is not None:
+        y = y + b.astype(dtype).reshape(1, 1, 1, -1)
+    return y
+
+
+def _dense(s: _Scope, name: str, x, features: int, dtype):
+    """Channel-dense layer (keras TensorProduct / Dense) in `dtype`."""
+    s = s.child(name)
+    k = s.param("kernel", _lecun_normal, (x.shape[-1], features))
+    b = s.param("bias", _zeros, (features,))
+    x = x.astype(dtype)
+    y = jax.lax.dot_general(x, k.astype(dtype),
+                            (((x.ndim - 1,), (0,)), ((), ())))
+    return y + b.astype(dtype).reshape((1,) * (y.ndim - 1) + (-1,))
+
+
+def _batch_norm(s: _Scope, name: str, x, epsilon: float, dtype,
+                scale_init=_ones, momentum: float = 0.9):
+    """BatchNorm over NHW. Statistics and the affine map run in float32;
+    the result is cast to `dtype`."""
+    s = s.child(name)
+    c = x.shape[-1]
+    if s.key is not None and "mean" not in s.stats:
+        s.stats["mean"] = jnp.zeros((c,), jnp.float32)
+        s.stats["var"] = jnp.ones((c,), jnp.float32)
+    axes = tuple(range(x.ndim - 1))
+    if s.train:
+        xf = x.astype(jnp.promote_types(dtype, jnp.float32))
+        sq = jax.lax.square(xf)
+        mean, mean2 = xf.mean(axes), sq.mean(axes)
+        var = jnp.maximum(0.0, mean2 - jax.lax.square(mean))
+        s.new_stats["mean"] = momentum * s.stats["mean"] \
+            + (1 - momentum) * mean
+        s.new_stats["var"] = momentum * s.stats["var"] + (1 - momentum) * var
+    else:
+        mean, var = s.stats["mean"], s.stats["var"]
+    y = x - jnp.expand_dims(mean, axes)
+    mul = jax.lax.rsqrt(jnp.expand_dims(var, axes) + epsilon)
+    mul = mul * s.param("scale", scale_init, (c,)).reshape(1, 1, 1, c)
+    y = y * mul
+    y = y + s.param("bias", _zeros, (c,)).reshape(1, 1, 1, c)
+    return y.astype(dtype)
+
+
+def _max_pool_3x3_s2(x):
+    """3×3/2 max pool with one row/col of -inf padding on each side."""
+    return jax.lax.reduce_window(x, -jnp.inf, jax.lax.max, (1, 3, 3, 1),
+                                 (1, 2, 2, 1),
+                                 ((0, 0), (1, 1), (1, 1), (0, 0)))
+
+
+def _bottleneck(s: _Scope, x, features: int, strides, projection: bool,
+                dtype):
+    """ResNet50 bottleneck block (1×1, 3×3, 1×1 ×4, residual)."""
+    def norm(name, y, **kw):
+        return _batch_norm(s, name, y, BACKBONE_BN_EPSILON, dtype, **kw)
+
+    residual = x
+    y = _conv(s, "Conv_0", x, features, (1, 1), dtype, strides=strides,
+              use_bias=False)
+    y = jax.nn.relu(norm("BatchNorm_0", y))
+    y = _conv(s, "Conv_1", y, features, (3, 3), dtype, use_bias=False)
+    y = jax.nn.relu(norm("BatchNorm_1", y))
+    y = _conv(s, "Conv_2", y, features * 4, (1, 1), dtype, use_bias=False)
+    y = norm("BatchNorm_2", y, scale_init=_zeros)
+    if projection or residual.shape[-1] != features * 4:
+        residual = _conv(s, "Conv_3", residual, features * 4, (1, 1), dtype,
+                         strides=strides, use_bias=False)
+        residual = norm("BatchNorm_3", residual)
+    return jax.nn.relu(y + residual)
+
+
+def _resnet50(s: _Scope, x, stage_sizes: Sequence[int], base_width: int,
+              dtype):
+    """Standard ResNet50 stages; returns C2..C5 feature maps (strides
+    4..32). `stage_sizes`/`base_width` shrink it for the mini
+    configuration."""
+    # keras ResNet50 stem: ZeroPadding2D(3) + 7x7/2 VALID conv — an
+    # explicit (3, 3) pad, NOT 'SAME' (SAME on an even input pads (2, 3):
+    # one row/col shifted vs the published weights)
+    x = _conv(s, "Conv_0", x, base_width, (7, 7), dtype, strides=(2, 2),
+              padding=[(3, 3), (3, 3)], use_bias=False)
+    x = jax.nn.relu(_batch_norm(s, "BatchNorm_0", x, BACKBONE_BN_EPSILON,
+                                dtype))
+    # keras pool1: ZeroPadding2D(1) + 3x3/2 VALID maxpool. This pads with
+    # -inf where keras pads with ZEROS — identical here because the input
+    # is post-relu (>= 0, so real values always dominate a zero pad);
+    # pinned by tests/models/test_keras_semantics.py
+    x = _max_pool_3x3_s2(x)
+    feats = []
+    block = 0
+    for i, n_blocks in enumerate(stage_sizes):
+        features = base_width * (2 ** i)
+        for j in range(n_blocks):
+            strides = (2, 2) if (i > 0 and j == 0) else (1, 1)
+            x = _bottleneck(s.child(f"BottleneckBlock_{block}"), x, features,
+                            strides, projection=j == 0, dtype=dtype)
+            block += 1
+        feats.append(x)
+    return feats  # [C2, C3, C4, C5]
+
+
+def _fpn(s: _Scope, feats, channels: int, dtype):
     """deepcell-tf `fpn.__create_pyramid_features` topology over C3–C5:
     1×1 laterals (`C{l}_reduced`), bilinear top-down adds, 3×3 smoothing
     (`P{l}`), plus the retinanet-style extras P6 = stride-2 3×3 on C5 and
@@ -159,70 +251,52 @@ class FPN(nn.Module):
     even though the semantic heads consume only P3 — they are created here
     too (XLA dead-code-eliminates their compute when unused) so a converted
     checkpoint maps 1:1 with no leftover layers."""
-    channels: int = 256
-    dtype: Any = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, feats):
-        levels = (3, 4, 5)                       # feats = [C3, C4, C5]
-        laterals = [nn.Conv(self.channels, (1, 1), dtype=self.dtype,
-                            name=f"C{l}_reduced")(f)
-                    for l, f in zip(levels, feats)]
-        tops = [laterals[-1]]
-        for lat in laterals[-2::-1]:
-            b, h, w, c = lat.shape
-            tops.append(lat + _bilinear_resize(tops[-1], h, w,
-                                               dtype=self.dtype))
-        tops = tops[::-1]
-        pyr = [nn.Conv(self.channels, (3, 3), padding="SAME",
-                       dtype=self.dtype, name=f"P{l}")(t)
-               for l, t in zip(levels, tops)]
-        p6 = nn.Conv(self.channels, (3, 3), strides=(2, 2), padding="SAME",
-                     dtype=self.dtype, name="P6")(feats[-1])
-        p7 = nn.Conv(self.channels, (3, 3), strides=(2, 2), padding="SAME",
-                     dtype=self.dtype, name="P7")(nn.relu(p6))
-        return pyr + [p6, p7]                    # [P3, P4, P5, P6, P7]
+    levels = (3, 4, 5)                       # feats = [C3, C4, C5]
+    laterals = [_conv(s, f"C{l}_reduced", f, channels, (1, 1), dtype)
+                for l, f in zip(levels, feats)]
+    tops = [laterals[-1]]
+    for lat in laterals[-2::-1]:
+        b, h, w, c = lat.shape
+        tops.append(lat + _bilinear_resize(tops[-1], h, w, dtype=dtype))
+    tops = tops[::-1]
+    pyr = [_conv(s, f"P{l}", t, channels, (3, 3), dtype)
+           for l, t in zip(levels, tops)]
+    p6 = _conv(s, "P6", feats[-1], channels, (3, 3), dtype, strides=(2, 2))
+    p7 = _conv(s, "P7", jax.nn.relu(p6), channels, (3, 3), dtype,
+               strides=(2, 2))
+    return pyr + [p6, p7]                    # [P3, P4, P5, P6, P7]
 
 
-class SemanticHead(nn.Module):
+def _semantic_head(s: _Scope, p3, out_hw, n_classes: int,
+                   upsample_filters: int, dense_features: int, dtype):
     """deepcell-tf `fpn.__create_semantic_head` topology: from the finest
     pyramid level (P3, stride 8), three rounds of 3×3 conv + relu + 2×
     bilinear upsample back to input resolution (`semantic_upsample`,
     conv_{i}_semantic_upsample_{id}), then a channel-dense (TensorProduct)
     to `dense_features` + BatchNorm + relu, then a channel-dense to
-    n_classes. Module/leaf names are the converter's targets.
-
-    Perf note: applying dense_0+bn_0 below the final upsample (an exact
-    reordering — both are per-pixel affine maps and bilinear weights sum
-    to 1) was measured SLOWER on TPU: the resize is the dominant cost of
-    this head at large sizes and the fold doubles its channel count
-    (benchmarks/head_fold_ab.py: 11.7→13.5 ms at 1024²/b2). The published
-    order is kept; the resize runs in the model dtype instead (1.47×)."""
-    n_classes: int
-    upsample_filters: int = 64
-    dense_features: int = 128
-    dtype: Any = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, p3, out_hw, train: bool = False):
-        x = p3
-        for i in range(3):
-            x = nn.Conv(self.upsample_filters, (3, 3), padding="SAME",
-                        dtype=self.dtype, name=f"upsample_conv_{i}")(x)
-            x = nn.relu(x)
-            b, h, w, c = x.shape
-            # the last step is an UpsampleLike straight to the input size
-            th, tw = (out_hw if i == 2 else (h * 2, w * 2))
-            x = _bilinear_resize(x, th, tw, dtype=self.dtype)
-        x = nn.Dense(self.dense_features, dtype=self.dtype, name="dense_0")(x)
-        x = nn.BatchNorm(use_running_average=not train, momentum=0.9,
-                         epsilon=HEAD_BN_EPSILON, dtype=self.dtype,
-                         name="bn_0")(x)
-        x = nn.relu(x)
-        return nn.Dense(self.n_classes, dtype=jnp.float32, name="dense_1")(x)
+    n_classes. Leaf names are the converter's targets. Applying dense_0 +
+    bn_0 below the final upsample would be an exact reordering (both are
+    per-pixel affine maps and bilinear weights sum to 1); the published
+    order is kept."""
+    x = p3
+    for i in range(3):
+        x = jax.nn.relu(_conv(s, f"upsample_conv_{i}", x, upsample_filters,
+                              (3, 3), dtype))
+        b, h, w, c = x.shape
+        # the last step is an UpsampleLike straight to the input size
+        th, tw = (out_hw if i == 2 else (h * 2, w * 2))
+        x = _bilinear_resize(x, th, tw, dtype=dtype)
+    x = _dense(s, "dense_0", x, dense_features, dtype)
+    x = jax.nn.relu(_batch_norm(s, "bn_0", x, HEAD_BN_EPSILON, dtype))
+    return _dense(s, "dense_1", x, n_classes, jnp.float32)
 
 
-class PanopticNet(nn.Module):
+_ACTIVATIONS = {"relu": jax.nn.relu, "softplus": jax.nn.softplus,
+                "linear": lambda y: y}
+
+
+@dataclasses.dataclass(frozen=True)
+class PanopticNet:
     """Mesmer-configuration segmentation net.
 
     Output dict per compartment c in {'whole_cell', 'nuclear'}:
@@ -233,6 +307,11 @@ class PanopticNet(nn.Module):
     256-channel FPN). `stage_sizes`/`base_width`/`fpn_channels` define the
     mini configuration (`init_mesmer_mini`) used for fast synthetic training
     and tests — same code path, fewer/narrower blocks.
+
+    Variables are the pytree {'params': ..., 'batch_stats': ...} with
+    module paths as keys (`ResNet50Backbone_0/BottleneckBlock_3/Conv_1/
+    kernel`, `FPN_0/P3/bias`, `whole_cell_inner/bn_0/mean`, ...): the
+    layout of the `.npz` checkpoints and of `convert_deepcell`.
     """
     compartments: Sequence[str] = ("whole_cell", "nuclear")
     dtype: Any = jnp.bfloat16
@@ -254,40 +333,52 @@ class PanopticNet(nn.Module):
     # thresholds at 0.1 so small negative background is harmless)
     inner_activation: str = "relu"
 
-    @nn.compact
-    def __call__(self, x, train: bool = False,
-                 return_p3: bool = False) -> Dict[str, jax.Array]:
-        """return_p3=True: stop after the FPN and return the P3 feature map
-        (for head experiments, e.g. benchmarks/head_tile_ab.py) — the
-        semantic heads are neither created nor applied, so this is only
-        valid on variables initialized by a normal forward."""
+    def init(self, key: jax.Array, x: jax.Array, train: bool = False) -> Dict:
+        """Draw a variables pytree for inputs shaped like `x`."""
+        params, stats = {}, {}
+        self._forward(_Scope(params, stats, key, (), False, None), x)
+        return {"params": params, "batch_stats": stats}
+
+    def apply(self, variables: Dict, x: jax.Array, train: bool = False,
+              mutable=(), return_p3: bool = False):
+        """Forward pass. `train=True` normalizes with batch statistics;
+        with `mutable` set the call returns (outputs, {'batch_stats':
+        updated running averages}).
+
+        return_p3=True: stop after the FPN and return the P3 feature map
+        (for head experiments, e.g. benchmarks/head_tile_ab.py)."""
+        stats = variables.get("batch_stats", {})
+        new_stats = {} if train else None
+        out = self._forward(_Scope(variables["params"], stats, None, (),
+                                   train, new_stats), x, return_p3)
+        if mutable:
+            return out, {"batch_stats": new_stats if train else stats}
+        return out
+
+    def _forward(self, s: _Scope, x, return_p3: bool = False):
+        dtype = self.dtype
         out_hw = x.shape[1:3]
-        x = x.astype(self.dtype)
+        x = x.astype(dtype)
         if self.location:
             b, h, w, _ = x.shape
             loc = jnp.broadcast_to(location2d_grid(h, w)[None], (b, h, w, 2))
-            x = jnp.concatenate([x, loc.astype(self.dtype)], axis=-1)
-        x = nn.Dense(3, dtype=self.dtype, name="tensor_product")(x)
-        feats = ResNet50Backbone(dtype=self.dtype,
-                                 stage_sizes=tuple(self.stage_sizes),
-                                 base_width=self.base_width)(x, train)
-        pyramid = FPN(channels=self.fpn_channels,
-                      dtype=self.dtype)(feats[1:])   # C3, C4, C5
+            x = jnp.concatenate([x, loc.astype(dtype)], axis=-1)
+        x = _dense(s, "tensor_product", x, 3, dtype)
+        feats = _resnet50(s.child("ResNet50Backbone_0"), x,
+                          tuple(self.stage_sizes), self.base_width, dtype)
+        pyramid = _fpn(s.child("FPN_0"), feats[1:], self.fpn_channels, dtype)
         p3 = pyramid[0]
         if return_p3:
             return p3
         out = {}
+        act = _ACTIVATIONS[self.inner_activation]
         for comp in self.compartments:
-            inner = SemanticHead(
-                1, upsample_filters=self.head_upsample_filters,
-                dense_features=self.head_dense_features, dtype=self.dtype,
-                name=f"{comp}_inner")(p3, out_hw, train)
-            pixelwise = SemanticHead(
-                3, upsample_filters=self.head_upsample_filters,
-                dense_features=self.head_dense_features, dtype=self.dtype,
-                name=f"{comp}_pixelwise")(p3, out_hw, train)
-            act = {"relu": nn.relu, "softplus": nn.softplus,
-                   "linear": lambda y: y}[self.inner_activation]
+            inner = _semantic_head(
+                s.child(f"{comp}_inner"), p3, out_hw, 1,
+                self.head_upsample_filters, self.head_dense_features, dtype)
+            pixelwise = _semantic_head(
+                s.child(f"{comp}_pixelwise"), p3, out_hw, 3,
+                self.head_upsample_filters, self.head_dense_features, dtype)
             out[f"{comp}_inner_distance"] = act(inner)
             out[f"{comp}_pixelwise"] = jax.nn.softmax(pixelwise, axis=-1)
         return out
@@ -308,8 +399,8 @@ def init_mesmer(seed: int = 0, input_shape=(1, 256, 256, 2),
                 dtype=jnp.bfloat16, **config):
     """Initialize a Mesmer PanopticNet; returns (model, variables).
 
-    Init runs under jit — eager flax init of the full ResNet50 evaluates
-    ~160 convs op-by-op (98 s on this host); jitted it is one compile.
+    Init runs under jit — an eager init of the full ResNet50 evaluates
+    ~160 convs op-by-op; jitted it is one compile.
     Results are memoized per (seed, shape, dtype, config): repeated inits
     (common in tests) return the same model and variables pytree — treat
     the variables as immutable (all jax ops copy; never mutate in place)."""

@@ -1,1 +1,1 @@
-"""TPU compute kernels (Pallas + XLA) for the framework's hot ops."""
+"""Device compute kernels (jitted XLA programs) for the framework's hot ops."""

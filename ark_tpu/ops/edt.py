@@ -13,9 +13,8 @@ row indices masked to background pixels, the nearest below a reversed
 cummin. Pass 2 is evaluated directly as a blocked min-plus reduction over
 source columns — O(H·W²) element ops instead of the sequential O(H·W)
 lower-envelope scan, because a data-dependent envelope stack doesn't map to
-XLA, while a broadcast+min-reduce tiles perfectly onto the TPU VPU and
-keeps everything in one fused program (1024² ≈ 1e9 int ops, well under a
-millisecond-scale budget; 4096² ≈ 7e10, tens of ms).
+XLA, while a broadcast+min-reduce is plain vector work that keeps
+everything in one fused program (1024² ≈ 1e9 int ops; 4096² ≈ 7e10).
 
 All distance arithmetic is int32 — squared distances reach 2·4096² ≈ 33.5M,
 past float32's 2²⁴ exact-integer range — so the result is bit-exact vs

@@ -5,8 +5,8 @@ preprocessing (`pixie_preprocessing.py:47-49`, sigma=blur_factor=2) and
 channel smoothing (`pixel_cluster_utils.py:183-227`). Numerics match scipy's
 default settings: truncate=4.0 kernel radius, 'reflect' boundary (numpy
 'symmetric'), normalized order-0 kernel — so cohort norm values agree with the
-reference to float32 precision. Runs as two 1-D depthwise convolutions on TPU
-(HBM-bound; XLA fuses the pad)."""
+reference to float32 precision. Runs as two 1-D depthwise convolutions on the
+device (memory-bound; XLA fuses the pad)."""
 
 from __future__ import annotations
 

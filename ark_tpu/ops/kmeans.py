@@ -1,4 +1,4 @@
-"""k-means as jitted Lloyd iterations on TPU.
+"""k-means as jitted Lloyd iterations on device.
 
 Replaces the reference's sklearn KMeans calls (neighborhood sweeps k=2..10,
 `spatial_analysis_utils.py:341-454`; spLDA topic EDA). Deterministic given a
@@ -55,7 +55,8 @@ def _kmeans_fit_impl(data: jax.Array, k: int, seed,
 
     def assign(centers):
         c2 = jnp.sum(centers * centers, axis=1)
-        # HIGHEST: f32 assignment parity on TPU (default matmul is bf16)
+        # HIGHEST: f32 assignment parity (a default-precision matmul may
+        # run in bf16 or TF32)
         d2 = x2[:, None] - 2.0 * jnp.dot(
             data, centers.T,
             precision=jax.lax.Precision.HIGHEST) + c2[None, :]
@@ -64,7 +65,7 @@ def _kmeans_fit_impl(data: jax.Array, k: int, seed,
     def step(centers, _):
         labels, d2 = assign(centers)
         h = jax.nn.one_hot(labels, k, dtype=jnp.float32)    # (N, k)
-        sums = h.T @ data                                   # MXU
+        sums = h.T @ data                                   # (k, C)
         counts = jnp.sum(h, axis=0)
         new_centers = sums / jnp.maximum(counts, 1.0)[:, None]
         # empty clusters: re-seed to the current farthest point
@@ -91,7 +92,7 @@ def kmeans_fit_multi(data: jax.Array, k: int, seed: int = 42,
     """Best of `n_init` seeded k-means++ restarts (sklearn's n_init
     semantics, `spatial_analysis_utils.py:341-454` parity on hard data).
     The restarts run as ONE vmapped program — n_init Lloyd solves batched
-    over the MXU rather than looping — and the lowest-inertia fit wins."""
+    rather than looping — and the lowest-inertia fit wins."""
     seeds = seed + jnp.arange(n_init)
     centers, labels, inertias = jax.vmap(
         lambda s: _kmeans_fit_impl(data, k, s, n_iter))(seeds)

@@ -98,9 +98,8 @@ def remove_small_holes(mask: np.ndarray, area_threshold: int = 64) -> np.ndarray
     (tests/ops/test_cc.py), not this function.
 
     Host scipy, not the device CC kernel: a single host-resident mask
-    round-tripped through `ops.cc` measured 0.27 s at 1024² on the attach
-    vs 5 ms for scipy (PERF.md r3 corrections) — the device kernels are
-    for batched/fused/device-resident contexts."""
+    would pay a device round trip for a few ms of scipy work — the device
+    kernels are for batched/fused/device-resident contexts."""
     import scipy.ndimage as ndi
 
     fg = np.asarray(mask).astype(bool)

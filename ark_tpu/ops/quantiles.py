@@ -4,9 +4,16 @@ The reference's normalization contract is built on `np.quantile` /
 `pandas.DataFrame.quantile` (linear interpolation) — channel 99th percentiles
 of nonzero pixels (`pixel_cluster_utils.py:44-52`), 99.9% quantiles ignoring
 zeros (`pixie_preprocessing.py:407`, `cluster_helpers.py:366`), and the 5%
-pixel-intensity threshold (`pixel_cluster_utils.py:104`). jnp.quantile uses
-the same 'linear' method, so these helpers are bit-compatible with numpy up to
-float32 rounding (SURVEY.md §7 hard part a)."""
+pixel-intensity threshold (`pixel_cluster_utils.py:104`).
+
+Every quantile here is computed without a sort: a 32-step bisection on the
+order-preserving uint32 keys of the float bits, counting `key <= mid` per
+step, finds the exact f32 order statistics bracketing q·(n−1), which are
+then linearly interpolated like numpy. The results are bit-identical to
+the sort-based `jnp.quantile`/`jnp.nanquantile` (pinned by the tests) and
+faster than XLA's sort on the GPU (A/B in PERF.md). NaN is propagated like
+`np.quantile` for the plain quantile and ignored by the zero-ignoring
+variants, like pandas. (SURVEY.md §7 hard part a.)"""
 
 from __future__ import annotations
 
@@ -16,25 +23,14 @@ import jax
 import jax.numpy as jnp
 
 
-def _use_bisect() -> bool:
-    """TPU: the 32-pass counting bisection beats the XLA sort ~6x on FOV-
-    scale columns (measured 30 -> 5 ms for 1M x 16 at q=0.999, host-chained
-    anti-replay protocol); CPU keeps the sort path. Both are exact and
-    bit-identical (trace-time decision)."""
-    return jax.default_backend() == "tpu"
-
-
 @functools.partial(jax.jit, static_argnames=("q",))
 def quantile(x: jax.Array, q: float) -> jax.Array:
     """np.quantile(x, q) with linear interpolation, on device."""
     flat = x.reshape(-1).astype(jnp.float32)
-    if _use_bisect():
-        out = _masked_quantile_flat(flat, jnp.ones_like(flat, bool), q)
-        # np.quantile propagates NaN; the bit-key bisection would instead
-        # order NaN as an extreme value, silently diverging from the CPU
-        # sort path on the same data
-        return jnp.where(jnp.any(jnp.isnan(flat)), jnp.nan, out)
-    return jnp.quantile(flat, q)
+    out = _masked_quantile_flat(flat, jnp.ones_like(flat, bool), q)
+    # np.quantile propagates NaN; the bit-key bisection would instead order
+    # NaN as an extreme value
+    return jnp.where(jnp.any(jnp.isnan(flat)), jnp.nan, out)
 
 
 @functools.partial(jax.jit, static_argnames=("q",))
@@ -42,44 +38,8 @@ def nonzero_quantile(x: jax.Array, q: float) -> jax.Array:
     """Quantile of the positive entries of x (reference pattern
     `img[img > 0]` then np.quantile). NaN if no positive entries."""
     x = x.reshape(-1).astype(jnp.float32)
-    if _use_bisect():
-        return _masked_quantile_flat(x, x > 0, q)
-    masked = jnp.where(x > 0, x, jnp.nan)
-    return jnp.nanquantile(masked, q)
+    return _masked_quantile_flat(x, x > 0, q)
 
-
-@functools.partial(jax.jit, static_argnames=("q",))
-def nonzero_quantile_per_column(x: jax.Array, q: float) -> jax.Array:
-    """Per-column q-quantile ignoring zeros (pandas
-    `.replace(0, np.nan).quantile(q)` semantics). x: (N, C) -> (C,)."""
-    if _use_bisect():
-        return nonzero_quantile_per_column_bisect(x, q)
-    x = x.astype(jnp.float32)
-    masked = jnp.where(x == 0, jnp.nan, x)
-    return jnp.nanquantile(masked, q, axis=0)
-
-
-@functools.partial(jax.jit, static_argnames=("q",))
-def masked_quantile_per_column(x: jax.Array, valid: jax.Array, q: float) -> jax.Array:
-    """Per-column quantile over rows where `valid` is True, ignoring zeros.
-
-    Used to compute per-FOV post-rownorm 99.9% values without compacting the
-    dense (H*W, C) device matrix (invalid rows stay padded).
-    """
-    if _use_bisect():
-        return masked_quantile_per_column_bisect(x, valid, q)
-    x = x.astype(jnp.float32)
-    bad = (~valid[:, None]) | (x == 0)
-    return jnp.nanquantile(jnp.where(bad, jnp.nan, x), q, axis=0)
-
-
-# ---------------------------------------------------------------------------
-# Sort-free exact quantiles: 32-step bisection on the order-preserving
-# uint32 keys of the float bits, counting `key <= mid` per step. A full
-# XLA sort of a 1M-row FOV column costs ~10x these counting passes on TPU
-# (the same trick Mesmer preprocessing uses, `mesmer._order_stats_bisect`;
-# results are exact f32 order statistics, then linearly interpolated).
-# ---------------------------------------------------------------------------
 
 def _float_keys(x: jax.Array) -> jax.Array:
     """IEEE754 f32 -> order-preserving uint32 key (negatives flipped)."""
@@ -129,8 +89,7 @@ def _masked_quantile_flat(flat: jax.Array, valid: jax.Array,
                           q: float) -> jax.Array:
     """Linear-interpolated quantile of the valid entries of a 1-D array via
     counting bisection; NaN when nothing is valid. The count is a plain
-    full-array reduction per step (natural TPU layout; the (N, 1)-column
-    path would waste 127/128 lanes)."""
+    full-array reduction per step."""
     key = jnp.where(valid, _float_keys(flat), jnp.uint32(0xFFFFFFFF))
     n_valid = jnp.sum(valid)
     pos = q * jnp.maximum(n_valid - 1, 0).astype(jnp.float32)
@@ -158,14 +117,14 @@ def _masked_quantile_flat(flat: jax.Array, valid: jax.Array,
 
 
 @functools.partial(jax.jit, static_argnames=("q",))
-def nonzero_quantile_per_column_bisect(x: jax.Array, q: float) -> jax.Array:
-    """`nonzero_quantile_per_column` semantics (pandas `.replace(0, nan)
-    .quantile(q)`, linear interpolation) via counting bisection instead of a
-    sort. x: (N, C) -> (C,); NaN for all-zero columns."""
+def nonzero_quantile_per_column(x: jax.Array, q: float) -> jax.Array:
+    """Per-column q-quantile ignoring zeros (pandas `.replace(0, np.nan)
+    .quantile(q)` semantics, linear interpolation). x: (N, C) -> (C,); NaN
+    for all-zero columns."""
     x = x.astype(jnp.float32)
-    # NaN entries are ignored, matching the pandas/nanquantile sort path
-    # (NaN != 0 is True, so a bare `x != 0` would count them as valid and
-    # the bit-key ordering would place them past +inf)
+    # NaN entries are ignored, matching pandas/nanquantile (NaN != 0 is
+    # True, so a bare `x != 0` would count them as valid and the bit-key
+    # ordering would place them past +inf)
     valid = (x != 0) & ~jnp.isnan(x)
     n_valid = jnp.sum(valid, axis=0)                       # (C,)
     pos = q * jnp.maximum(n_valid - 1, 0).astype(jnp.float32)
@@ -178,9 +137,12 @@ def nonzero_quantile_per_column_bisect(x: jax.Array, q: float) -> jax.Array:
 
 
 @functools.partial(jax.jit, static_argnames=("q",))
-def masked_quantile_per_column_bisect(x: jax.Array, valid: jax.Array,
-                                      q: float) -> jax.Array:
-    """`masked_quantile_per_column` semantics via counting bisection."""
+def masked_quantile_per_column(x: jax.Array, valid: jax.Array,
+                               q: float) -> jax.Array:
+    """Per-column quantile over rows where `valid` is True, ignoring zeros
+    and NaN. Used to compute per-FOV post-rownorm 99.9% values without
+    compacting the dense (H*W, C) device matrix (invalid rows stay
+    padded)."""
     x = x.astype(jnp.float32)
     ok = valid[:, None] & (x != 0) & ~jnp.isnan(x)
     n_valid = jnp.sum(ok, axis=0)

@@ -1,4 +1,4 @@
-"""Segment reductions over label images: the TPU replacement for regionprops.
+"""Segment reductions over label images: the device replacement for regionprops.
 
 The reference's cell-table engine loops over cells in Python, gathering each
 cell's pixel coordinates and calling per-cell reducers
@@ -107,8 +107,8 @@ def _perimeter_contributions(labels: jax.Array) -> jax.Array:
     both endpoint labels; attributing every pixel's 8 neighbor mismatches to
     the pixel's OWN label is the same total per label, but turns the
     reduction into ONE scatter keyed by the label image instead of 8 scatters
-    keyed by shifted copies (a ~6x win on TPU, where scatter cost is
-    per-pass, not per-element). Image border counts as background.
+    keyed by shifted copies (fewer passes over the index array). Image
+    border counts as background.
     """
     labels = labels.astype(jnp.int32)
     h, w = labels.shape
@@ -259,11 +259,9 @@ def moment_features(labels: jax.Array, num_segments: int) -> dict:
     major_axis_length, minor_axis_length, eccentricity, equivalent_diameter,
     orientation, perimeter.
 
-    TWO fused scatters (centroids, then centered monomials + perimeter):
-    scatter cost on TPU is per-pass, not per-element — the old design ran
-    7 separate segment_sums over the same index array and measured ~10x
-    slower (99 -> 8.7 ms for a 1024² FOV with 5k cells on v5e); the second
-    pass buys origin-independent f32 central moments.
+    TWO fused scatters (centroids, then centered monomials + perimeter)
+    instead of 7 separate segment_sums over the same index array; the
+    second pass buys origin-independent f32 central moments.
     """
     m00, cy, cx, mu20, mu02, mu11, perim, _ = _central_moment_sums(
         labels, num_segments)

@@ -1,4 +1,4 @@
-"""Self-organizing map: TPU-native train + BMU-map kernels.
+"""Self-organizing map: batch-parallel training + BMU mapping on device.
 
 This replaces the reference's single hottest kernel — pyFlowSOM's C
 implementation of FlowSOM's SOM (`reference src/ark/phenotyping/
@@ -6,22 +6,20 @@ cluster_helpers.py:98-163`: `som(data, xdim=10, ydim=10, rlen, alpha_range=
 (0.05, 0.01), seed)` and `map_data_to_nodes(weights, chunk)` over 1M-row
 chunks).
 
-TPU-first redesign (SURVEY.md §7 step 2):
+Redesign for an accelerator (SURVEY.md §7 step 2):
 
-* **BMU mapping** is a fused distance-matmul + argmin: for data X (N×C) and
+* **BMU mapping** is a distance-matmul + argmin: for data X (N×C) and
   weights W (K×C), the BMU is argmin_k ||x−w_k||² = argmin_k (||w_k||² − 2·x·w_kᵀ),
-  so the hot op is one (N×C)·(C×K) matmul on the MXU followed by a lane-wise
-  argmin on the VPU. Implemented as a Pallas kernel (`bmu_pallas`) with rows
-  blocked over a grid, plus an XLA fallback (`bmu_xla`) used on CPU and as a
-  numerics oracle in tests.
+  so the hot op is one (N×C)·(C×K) matmul followed by a row argmin
+  (`bmu_xla`, plain XLA; it fuses into the programs that call it).
 
 * **Training** is batch-parallel instead of the reference's strictly
-  sequential online updates (which cannot use a systolic array): data is
+  sequential online updates (which cannot use a matrix unit): data is
   shuffled once (seeded), then scanned in fixed-size minibatches. Each step
   computes batch BMUs, forms the bubble-neighborhood membership matrix
   H (B×K) = [grid_dist(bmu_i, k) ≤ radius_t], and applies the classical batch
   Kohonen update  w_k ← w_k + α_t · (Σ_i H_ik x_i / Σ_i H_ik − w_k)  — two
-  more MXU matmuls (HᵀX and Hᵀ1). α and the neighborhood radius decay linearly
+  more matmuls (HᵀX and Hᵀ1). α and the neighborhood radius decay linearly
   across steps exactly as FlowSOM's online schedule does. Weight parity with
   pyFlowSOM is therefore distribution-level, not bitwise (SURVEY.md §7 hard
   part b); determinism within this framework is exact given a seed.
@@ -39,13 +37,6 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-_LANE = 128
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
 
 def grid_coordinates(xdim: int, ydim: int) -> np.ndarray:
     """(K, 2) grid coordinates for a rectangular SOM, row-major like FlowSOM."""
@@ -70,15 +61,14 @@ def default_radius_start(xdim: int, ydim: int) -> float:
 # ---------------------------------------------------------------------------
 
 def bmu_xla(weights: jax.Array, data: jax.Array) -> Tuple[jax.Array, jax.Array]:
-    """Reference XLA BMU: returns (argmin indices int32, squared distances)."""
+    """BMU search: returns (argmin indices int32, squared distances)."""
     # ||x||^2 - 2 x.w + ||w||^2 ; ||x||^2 needed only for the returned distance
     w2 = jnp.sum(weights * weights, axis=1)                      # (K,)
-    # HIGHEST: TPU default matmul precision is bf16, which flips argmins
-    # at Voronoi near-ties vs the true-f32 Pallas kernel (f32 parity is
-    # this module's contract; the kernel is HBM-bound so the 3-pass f32
-    # matmul is hidden behind the data stream anyway)
+    # HIGHEST: a default-precision f32 matmul may run in bf16 or TF32,
+    # which flips argmins at Voronoi near-ties (f32 parity with the
+    # reference's float distances is this module's contract)
     xw = jnp.dot(data, weights.T,
-                 precision=jax.lax.Precision.HIGHEST)            # (N, K) MXU
+                 precision=jax.lax.Precision.HIGHEST)            # (N, K)
     d = w2[None, :] - 2.0 * xw
     idx = jnp.argmin(d, axis=1).astype(jnp.int32)
     x2 = jnp.sum(data * data, axis=1)
@@ -86,169 +76,15 @@ def bmu_xla(weights: jax.Array, data: jax.Array) -> Tuple[jax.Array, jax.Array]:
     return idx, jnp.maximum(best, 0.0)
 
 
-def _pack_dims(c: int) -> Tuple[int, int]:
-    """(padded channel count C', pixels-per-row P) for the packed BMU layout."""
-    for cpad in (8, 16, 32, 64, 128):
-        if c <= cpad:
-            return cpad, _LANE // cpad
-    return _round_up(c, _LANE), 1
+_bmu_jit = jax.jit(bmu_xla)
 
 
-def _bmu_packed_kernel(x_ref, wb_ref, w2_ref, idx_ref, dist_ref):
-    """One row-block of the fused distance-matmul + argmin, packed layout.
-
-    The memory-roofline trick: with C' ≤ 128 channels, P = 128//C' pixels are
-    packed per 128-lane VMEM row (a free row-major reshape on the host array,
-    so HBM traffic is exactly the real data). The weight bank wb (128, P·128)
-    is block-shifted — pixel slot p's channels hit Wᵀ in columns
-    [p·128, p·128+K) — so one (BN,128)x(128,P·128) MXU matmul yields every
-    pixel's node products; the 8x MXU redundancy is free because the kernel is
-    HBM-bound. Measured ~1.5 ms per 4.19M pixels (C=16, K=100) on v5e once
-    the attach's ~30 ms fixed dispatch latency is amortized — ~2.6 Gpix/s,
-    at the chip's ~177 GB/s measured copy roofline.
-
-    x_ref:  (BN, 128)     P pixels per row
-    wb_ref: (128, P*128)  shifted weight bank
-    w2_ref: (1, P*128)    tiled node norms, +inf on padding
-    idx_ref, dist_ref: (BN, P) outputs
-
-    The per-slot reductions use static lane slices — a (BN, P, 128) reshape +
-    axis-2 argmin forces Mosaic relayouts that cost ~10x on v5e (measured
-    with data-dependent rep loops).
-    """
-    p = idx_ref.shape[1]
-    xw = jnp.dot(x_ref[:], wb_ref[:], preferred_element_type=jnp.float32)
-    d = w2_ref[:] - 2.0 * xw
-    idx_cols = []
-    dist_cols = []
-    for slot in range(p):
-        d_slot = d[:, slot * _LANE:(slot + 1) * _LANE]
-        idx_cols.append(jnp.argmin(d_slot, axis=1).astype(jnp.int32))
-        dist_cols.append(jnp.min(d_slot, axis=1))
-    idx_ref[:] = jnp.stack(idx_cols, axis=1)
-    dist_ref[:] = jnp.stack(dist_cols, axis=1)
+@jax.jit
+def _bmu_idx(weights: jax.Array, data: jax.Array) -> jax.Array:
+    return bmu_xla(weights, data)[0]
 
 
-def _bmu_packed_kernel_idx(x_ref, wb_ref, w2_ref, idx_ref):
-    """idx-only variant of `_bmu_packed_kernel` — the second (distance)
-    output costs ~4x on v5e, so the default return_dist=False path uses this
-    kernel."""
-    p = idx_ref.shape[1]
-    xw = jnp.dot(x_ref[:], wb_ref[:], preferred_element_type=jnp.float32)
-    d = w2_ref[:] - 2.0 * xw
-    idx_cols = []
-    for slot in range(p):
-        d_slot = d[:, slot * _LANE:(slot + 1) * _LANE]
-        idx_cols.append(jnp.argmin(d_slot, axis=1).astype(jnp.int32))
-    idx_ref[:] = jnp.stack(idx_cols, axis=1)
-
-
-@functools.partial(jax.jit, static_argnames=("block_n", "pack", "with_dist"))
-def _bmu_pallas_packed(data_packed: jax.Array, wbig: jax.Array, w2_p: jax.Array,
-                       block_n: int, pack: int, with_dist: bool = True):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    npk = data_packed.shape[0]
-    kp = _LANE
-    in_specs = [
-        pl.BlockSpec((block_n, _LANE), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((_LANE, pack * kp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, pack * kp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-    ]
-    out_spec = pl.BlockSpec((block_n, pack), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    cost = pl.CostEstimate(
-        flops=2 * npk * _LANE * pack * kp, transcendentals=0,
-        bytes_accessed=4 * (npk * _LANE + _LANE * pack * kp + npk * pack * 2))
-    if with_dist:
-        idx, dist = pl.pallas_call(
-            _bmu_packed_kernel, grid=(npk // block_n,), in_specs=in_specs,
-            out_specs=[out_spec, out_spec],
-            out_shape=[jax.ShapeDtypeStruct((npk, pack), jnp.int32),
-                       jax.ShapeDtypeStruct((npk, pack), jnp.float32)],
-            cost_estimate=cost,
-        )(data_packed, wbig, w2_p)
-        return idx.reshape(-1), dist.reshape(-1)
-    idx = pl.pallas_call(
-        _bmu_packed_kernel_idx, grid=(npk // block_n,), in_specs=in_specs,
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct((npk, pack), jnp.int32),
-        cost_estimate=cost,
-    )(data_packed, wbig, w2_p)
-    return idx.reshape(-1), None
-
-
-def _prepare_bmu_operands(weights: jax.Array, c: int):
-    """Build the shifted weight bank + tiled node norms for `weights` (K, C)."""
-    k = weights.shape[0]
-    cpad, pack = _pack_dims(c)
-    kp = _LANE if k <= _LANE else _round_up(k, _LANE)
-    if kp != _LANE:
-        raise NotImplementedError(
-            f"packed BMU kernel supports up to {_LANE} SOM nodes, got {k}")
-    wt = weights.astype(jnp.float32).T                            # (C, K)
-    wbig = jnp.zeros((_LANE, pack * kp), jnp.float32)
-    for p in range(pack):
-        wbig = wbig.at[p * cpad:p * cpad + c, p * kp:p * kp + k].set(wt)
-    w2 = jnp.sum(weights.astype(jnp.float32) ** 2, axis=1)
-    w2_row = jnp.full((kp,), jnp.inf, jnp.float32).at[:k].set(w2)
-    w2_p = jnp.tile(w2_row, pack)[None, :]
-    return wbig, w2_p, cpad, pack
-
-
-@functools.partial(jax.jit, static_argnames=("block_n", "with_dist"))
-def _bmu_pallas_program(weights: jax.Array, data: jax.Array, block_n: int,
-                        with_dist: bool):
-    """Whole bmu_pallas flow as ONE compiled program: weight-bank build,
-    channel/row padding, the pallas kernel, and (optionally) the ||x||²
-    completion of the distances. Running any of these eagerly costs one
-    ~30 ms dispatch EACH on the dev attach — several times the ~1.5 ms
-    kernel itself."""
-    n, c = data.shape
-    wbig, w2_p, cpad, pack = _prepare_bmu_operands(weights, c)
-    max_rows = 8192 if with_dist else 16384
-    bn = max(min(block_n, max_rows // pack), 8)
-    rows_per_block = bn * pack
-    n_p = _round_up(max(n, 1), rows_per_block)
-    data = data.astype(jnp.float32)
-    padded = jnp.pad(data, ((0, n_p - n), (0, cpad - c))) \
-        if (n_p != n or cpad != c) else data
-    data_packed = padded.reshape(n_p // pack, _LANE)
-    idx, dist = _bmu_pallas_packed(data_packed, wbig, w2_p, bn, pack,
-                                   with_dist=with_dist)
-    if not with_dist:
-        return idx[:n], None
-    x2 = jnp.sum(data * data, axis=1)                  # unpadded rows only
-    return idx[:n], jnp.maximum(dist[:n] + x2, 0.0)
-
-
-def bmu_pallas(weights: jax.Array, data: jax.Array, block_n: int = 2048,
-               return_dist: bool = True) -> Tuple[jax.Array, Optional[jax.Array]]:
-    """Fused Pallas BMU search (see `_bmu_packed_kernel`). Handles arbitrary
-    N/C by padding channels to the packed width and rows to the block size;
-    padded nodes carry +inf norm so they are never selected.
-
-    `return_dist=False` skips the ||x||² pass (a second full read of the
-    data) — use it whenever only cluster assignments are needed (the
-    reference's pipelines use only `map_data_to_nodes(...)[0]` as well).
-
-    The kernel's VMEM footprint is dominated by the (block_n, pack*128) f32
-    distance intermediate, so the block is capped at block_n*pack ≤ 16384
-    rows (idx-only) / 8192 (with dist: the two-output variant needs ~2x
-    scoped VMEM; 2048*8 exceeds v5e's 16M scoped-vmem limit by ~1M).
-    """
-    n, c = data.shape
-    k = weights.shape[0]
-    if k > _LANE or c > _LANE:
-        # rare shapes: fall back to the XLA path (still one fused jit)
-        idx, dist = jax.jit(bmu_xla)(weights, data)
-        return (idx, dist) if return_dist else (idx, None)
-    return _bmu_pallas_program(weights, data, block_n,
-                               with_dist=return_dist)
-
-
-def som_map_async(weights, data, impl: str = "auto"):
+def som_map_async(weights, data):
     """Dispatch-only BMU mapping: uploads + launches and returns the
     0-indexed device cluster array WITHOUT materializing it to host
     (``np.asarray`` on the result blocks). Lets callers overlap the h2d
@@ -260,40 +96,28 @@ def som_map_async(weights, data, impl: str = "auto"):
     data = jnp.asarray(data, jnp.float32)
     if data.shape[0] == 0:
         return jnp.empty(0, jnp.int32)
-    use_pallas = impl == "pallas" or (
-        impl == "auto" and jax.default_backend() == "tpu")
-    if use_pallas:
-        idx, _ = bmu_pallas(weights, data, return_dist=False)
-    else:
-        idx, _ = jax.jit(bmu_xla)(weights, data)
-    return idx
+    return _bmu_idx(weights, data)
 
 
-def som_map(weights, data, impl: str = "auto",
+def som_map(weights, data,
             return_dist: bool = True) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Map observations to their best-matching SOM node.
 
     Equivalent of `pyFlowSOM.map_data_to_nodes` (`cluster_helpers.py:150-157`)
-    but whole-array on device — no 1M-row Python chunk loop; XLA/Pallas blocks
-    the rows. Returns (clusters [1-indexed, matching pyFlowSOM], distances);
-    pass `return_dist=False` to skip the distance pass (~2x faster).
+    but whole-array on device — no 1M-row Python chunk loop. Returns
+    (clusters [1-indexed, matching pyFlowSOM], distances); pass
+    `return_dist=False` to skip the distance pass.
     """
     if not return_dist:
-        idx = som_map_async(weights, data, impl=impl)
+        idx = som_map_async(weights, data)
         return np.asarray(idx) + 1, None
     weights = jnp.asarray(weights, jnp.float32)
     data = jnp.asarray(data, jnp.float32)
     if data.shape[0] == 0:
         return (np.empty(0, np.int32),
                 np.empty(0, np.float32) if return_dist else None)
-    use_pallas = impl == "pallas" or (
-        impl == "auto" and jax.default_backend() == "tpu")
-    if use_pallas:
-        idx, dist = bmu_pallas(weights, data, return_dist=return_dist)
-    else:
-        idx, dist = jax.jit(bmu_xla)(weights, data)
-    return (np.asarray(idx) + 1,
-            np.asarray(dist) if (return_dist and dist is not None) else None)
+    idx, dist = _bmu_jit(weights, data)
+    return np.asarray(idx) + 1, np.asarray(dist)
 
 
 # ---------------------------------------------------------------------------
@@ -302,9 +126,9 @@ def som_map(weights, data, impl: str = "auto",
 
 # fixed scan length: the lr/radius schedule always spans MAX_TRAIN_STEPS
 # minibatch updates; batch size absorbs the data size (steps past the real
-# n_steps are masked out). A fixed-length scan compiles in seconds, where a
-# dynamic-trip-count while loop took minutes on the TPU toolchain, and the
-# pow2 batch buckets mean different cohort sizes reuse the same executable.
+# n_steps are masked out). A fixed-length scan compiles once for every
+# data size, and the pow2 batch buckets mean different cohort sizes reuse
+# the same executable.
 MAX_TRAIN_STEPS = 256
 
 
@@ -331,7 +155,7 @@ def _train_scan(data: jax.Array, w0: jax.Array, order: jax.Array,
         # bubble neighborhood membership (B, K)
         h = (jnp.take(gdist, bmu, axis=0) <= radius).astype(jnp.float32)
         num = jnp.dot(h.T, x,
-                      precision=jax.lax.Precision.HIGHEST)       # (K, C) MXU
+                      precision=jax.lax.Precision.HIGHEST)       # (K, C)
         den = jnp.sum(h, axis=0)                                 # (K,)
         if axis_name is not None:
             num = jax.lax.psum(num, axis_name)
@@ -433,7 +257,7 @@ def som_train(data, xdim: int = 10, ydim: int = 10, num_passes: int = 1,
               batch_size: Optional[int] = None,
               radius_start: Optional[float] = None,
               weights_init: Optional[np.ndarray] = None) -> np.ndarray:
-    """Train a SOM, TPU batch-parallel (defaults mirror `cluster_helpers.py:
+    """Train a SOM, batch-parallel (defaults mirror `cluster_helpers.py:
     54-56` / `pixel_som_clustering.py:19-21`: 10×10 grid, 1 pass, lr .05→.01,
     seed 42). Returns (xdim*ydim, C) float32 weights."""
     data_padded, w0, order, gdist, bs, r0, _ = _prepare_train(
@@ -463,12 +287,11 @@ def som_train_and_map(data, xdim: int = 10, ydim: int = 10,
                       weights_init: Optional[np.ndarray] = None):
     """Train a SOM and assign every training row its BMU in ONE jitted
     program — a single dispatch+readback where `som_train` + `som_map` pay
-    two. On this development attach each dispatch costs ~30-300 ms, which
-    dominates trained-SOM throughput for table-sized inputs (PERF.md), so
-    cell-table flows that train and map the same matrix should prefer this.
+    two, so cell-table flows that train and map the same matrix should
+    prefer this.
 
     Bitwise-identical to `som_train(...)` followed by
-    `som_map(weights, data, impl="xla")` (same seeded init/visiting order).
+    `som_map(weights, data)` (same seeded init/visiting order).
     Returns (weights (K, C) f32, clusters (N,) 1-indexed, distances (N,)).
     """
     data_padded, w0, order, gdist, bs, r0, n = _prepare_train(
@@ -491,11 +314,9 @@ def som_train_sharded(data, mesh, data_axis: str = "fov", xdim: int = 10,
     """Multi-chip SOM training: the full lr/radius schedule as ONE jitted
     sharded scan — rows row-sharded over `data_axis`, each device scanning
     its local visiting order, with the (HᵀX, Hᵀ1) batch statistics psum'd
-    over ICI every step (SURVEY.md §2.5(c)). This is the same `_train_scan`
-    program as single-chip training with `axis_name` wired through shard_map,
-    so the whole schedule is a single dispatch (round 1's version was a
-    Python loop with one device_put + dispatch per step — ~30 ms each on the
-    attach).
+    across devices every step (SURVEY.md §2.5(c)). This is the same
+    `_train_scan` program as single-chip training with `axis_name` wired
+    through shard_map, so the whole schedule is a single dispatch.
 
     Data placement: rows are shuffled once (seeded) and split contiguously
     across devices, so each device's shard is an iid sample; every global
@@ -564,7 +385,8 @@ def som_train_sharded(data, mesh, data_axis: str = "fov", xdim: int = 10,
 
 def make_sharded_train_step(mesh, data_axis: str = "fov"):
     """Return a jitted multi-chip SOM train-step: batch sharded over
-    `data_axis`, partial (HᵀX, Hᵀ1) sums all-reduced over ICI (SURVEY.md §2.5).
+    `data_axis`, partial (HᵀX, Hᵀ1) sums all-reduced across devices
+    (SURVEY.md §2.5).
 
     The returned fn signature: step(w, x_batch, alpha, radius, gdist) -> w.
     """

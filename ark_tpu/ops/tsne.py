@@ -1,14 +1,13 @@
 """t-SNE on device: exact (dense) gradient, one jitted `lax.scan`.
 
 The reference's visualization path delegates to single-thread sklearn
-(`src/ark/analysis/dimensionality_reduction.py:85`); this is the TPU-native
-replacement — the last compute path that had no device story (VERDICT r2
-weak #7). Exact t-SNE is the right TPU formulation at cytometry scales:
-the (N, N) affinity and gradient matrices are dense matmul/broadcast work
-that maps straight onto the MXU/VPU (N = 10k → 400 MB f32 transients,
-comfortably in HBM), whereas Barnes–Hut trees are pointer-chasing the
-hardware hates. Pipelines subsample to ~1e4 cells for embedding plots, so
-O(N²) per iteration is a non-issue on device.
+(`src/ark/analysis/dimensionality_reduction.py:85`); this is the device
+replacement. Exact t-SNE is the right accelerator formulation at
+cytometry scales: the (N, N) affinity and gradient matrices are dense
+matmul/broadcast work (N = 10k → 400 MB f32 transients, comfortably in
+device memory), whereas Barnes–Hut trees are pointer-chasing. Pipelines
+subsample to ~1e4 cells for embedding plots, so O(N²) per iteration is
+a non-issue on device.
 
 Algorithm (van der Maaten & Hinton 2008, matching sklearn semantics):
   - per-point conditional affinities with a vectorized 64-step binary

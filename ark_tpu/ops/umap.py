@@ -47,7 +47,8 @@ def _knn_row_block(rows: jax.Array, row_idx: jax.Array, data: jax.Array,
         blk, offset = args                                  # (Bc, C), scalar
         col_idx = offset + jnp.arange(block_cols, dtype=jnp.int32)
         c2 = jnp.sum(blk * blk, axis=1)
-        # HIGHEST: f32 neighbor ranks on TPU (default matmul is bf16)
+        # HIGHEST: f32 neighbor ranks (a default-precision matmul may run
+        # in bf16 or TF32)
         d = r2[:, None] - 2.0 * jnp.dot(
             rows, blk.T,
             precision=jax.lax.Precision.HIGHEST) + c2[None, :]
@@ -153,14 +154,13 @@ def _optimize(emb0: jax.Array, heads: jax.Array, tails: jax.Array,
     six scatter-adds: the edge endpoints are loop-invariant, so heads/tails
     are argsorted ONCE (XLA hoists it out of the scan) and every epoch's
     per-edge updates are permuted into sorted order and segment-summed with
-    `indices_are_sorted=True` — the duplicate-index scatter-add that TPUs
-    serialize becomes a contiguous segmented reduction. All
+    `indices_are_sorted=True` — the duplicate-index scatter-add becomes a
+    contiguous segmented reduction. All
     `negative_sample_rate` negatives are drawn and accumulated in one
     phase (gradients at the epoch-start embedding, like the attractive
     phase) rather than five sequential scatter rounds; this is a different
     SGD sample schedule than umap-learn's per-edge async loop, gated by the
-    embedding-quality goldens (tests/ops/test_umap_quality.py). Attach A/B
-    vs the scatter engine: benchmarks/r4_umap_ab.py, numbers in PERF.md."""
+    embedding-quality goldens (tests/ops/test_umap_quality.py)."""
     n = emb0.shape[0]
     n_edges = heads.shape[0]
 
@@ -226,8 +226,8 @@ def _optimize_scatter(emb0: jax.Array, heads: jax.Array, tails: jax.Array,
                       initial_lr: float = 1.0, a: float = _A,
                       b: float = _B) -> jax.Array:
     """The pre-r4 epoch loop (6 duplicate-index scatter-adds per epoch,
-    sequential negative-sample phases). Kept non-default for same-process
-    A/Bs against `_optimize` (benchmarks/r4_umap_ab.py)."""
+    sequential negative-sample phases). Kept non-default as the
+    zero-negatives test oracle for `_optimize`."""
     n = emb0.shape[0]
     n_edges = heads.shape[0]
 
@@ -277,7 +277,7 @@ def umap_epoch_sharded(emb, heads, tails, weights, key, mesh, lr: float,
     """One UMAP optimization epoch with the EDGE list sharded over the
     mesh: each shard computes attract + negative-sample repel deltas for
     its edges against the epoch-start embedding; the (N, d) deltas `psum`
-    over ICI and apply once. Batch-synchronous like the single-device
+    across devices and apply once. Batch-synchronous like the single-device
     `_optimize` epoch (since r4 both compute all phases against the
     epoch-start embedding) — the standard data-parallel relaxation (same
     fixed points, slightly different trajectory than per-edge async SGD).

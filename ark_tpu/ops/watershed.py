@@ -42,8 +42,8 @@ parity contract identical, tests/ops/test_watershed_device.py):
               total coverage) remain exact; only equidistant-tie ownership
               can differ from the host kernel.
 
-Both loops are fixed-length scans with `lax.cond` early-outs (the
-dynamic-trip-count remote-compile trap — see `ops/cc.py`). Coverage is
+Both loops are fixed-length scans with `lax.cond` early-outs (bounded
+programs — see `ops/cc.py`). Coverage is
 exact by construction: at the last level every masked pixel is conductive,
 so phase B labels everything reachable from a marker within the mask —
 `(device > 0) == (host > 0)` always (tested). The returned flag certifies
@@ -105,20 +105,6 @@ def label_components(mask: np.ndarray) -> np.ndarray:
 
 _LAB_SENTINEL = np.int32(2 ** 31 - 1)
 
-# test hook: run the claim kernel through the Pallas interpreter so the
-# CPU suite can pin kernel == XLA round equivalence without TPU hardware
-_PALLAS_INTERPRET = False
-
-# The fused Pallas claim round is OFF by default: measured on the attach
-# it wins in isolation (0.158 s vs 0.170 s for a 4x512² 256-level flood —
-# only ~7%, because the flood's floor is ~2 scan rounds/level of
-# cond/reduce latency, not memory passes) but LOSES inside the fused
-# Mesmer postprocess program (0.746 s vs 0.597 s same-process — the
-# pallas_call fusion-barrier effect, the same lesson as bmu_pallas inside
-# pipelines, CLAUDE.md). Flip for standalone-flood experiments only.
-_FORCE_PALLAS_CLAIM = False
-
-
 def _quantize(image, mask, levels: int):
     """Per-image quantization of `image` to int32 buckets [0, levels),
     using the same hot-pixel-robust range as the native kernel: the
@@ -155,111 +141,6 @@ def _claim_round(lab, q, mask, level):
     return jnp.where((lab == 0) & mask & (cand < _LAB_SENTINEL), cand, lab)
 
 
-# ---------------------------------------------------------------------------
-# Pallas claim round. The XLA `_claim_round` compiles to ~10 separate
-# elementwise/pad/reduce passes per BFS round (~0.66 ms/level at 4x512² —
-# the flood's dominant cost since phase B never fires on trained relief);
-# the fused kernel reads lab+q once per band, does the 4-neighbor stencil,
-# claim select, and changed-count in VMEM, and writes lab+count once.
-# Row bands carry NO halo in their block specs: the two neighbor rows per
-# band are strided-sliced from `lab` in XLA each round ((B, nbands, 2, W)
-# — tens of KB, vs re-padding the full image). Column halo is in-kernel
-# (static concat with the sentinel column). The mask is pre-encoded as
-# label -1 (never a source: -1 > 0 is False; never claimed: -1 == 0 is
-# False), so the kernel needs no mask operand.
-# ---------------------------------------------------------------------------
-
-
-def _claim_band_kernel(level_ref, lab_ref, halo_ref, q_ref, qhalo_ref,
-                       out_ref, chg_ref):
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    level = level_ref[0]
-    sent = _LAB_SENTINEL
-    lab = lab_ref[0]                    # (bh, W)
-    up_row, down_row = halo_ref[0, 0, 0:1], halo_ref[0, 0, 1:2]   # (1, W)
-    q = q_ref[0]
-    q_up, q_down = qhalo_ref[0, 0, 0:1], qhalo_ref[0, 0, 1:2]
-
-    full = jnp.concatenate([up_row, lab, down_row], axis=0)   # (bh+2, W)
-    qful = jnp.concatenate([q_up, q, q_down], axis=0)
-    v = jnp.where((full > 0) & (qful <= level), full, sent)
-    center = v[1:-1]
-    # lane shifts via pltpu.roll + iota-masked edges: Mosaic cannot lower
-    # a lane-dimension concatenate ("offset mismatch on non-concat
-    # dimension"); sublane (row) concat above is fine
-    col = jax.lax.broadcasted_iota(jnp.int32, center.shape, 1)
-    w = center.shape[1]
-    left = jnp.where(col == 0, sent, pltpu.roll(center, 1, 1))
-    # pltpu.roll requires shift >= 0: a left-rotate by 1 is w - 1
-    right = jnp.where(col == w - 1, sent, pltpu.roll(center, w - 1, 1))
-    cand = jnp.minimum(jnp.minimum(v[:-2], v[2:]),
-                       jnp.minimum(left, right))
-    new = jnp.where((lab == 0) & (cand < sent), cand, lab)
-    out_ref[0] = new
-    # one (1, nb) SMEM block per image (TPU pallas rejects (1, 1) tiles);
-    # each band writes its own slot
-    chg_ref[0, pl.program_id(1), 0] = jnp.sum(
-        (new != lab).astype(jnp.int32))
-
-
-def _band_height(h: int, w: int) -> int:
-    """Largest power-of-two band height dividing h with comfortable VMEM
-    (~6 live (bh+2, W) i32 buffers under ~8 MB)."""
-    bh = h
-    while bh > 8 and (bh + 2) * w * 4 * 6 > 8 * 2 ** 20:
-        bh //= 2
-    return bh if h % bh == 0 else 0
-
-
-def _band_halos(field, bh):
-    """Band-neighbor rows of a (B, H, W) int field (labels or levels):
-    (B, nb, 2, W) where [:, j, 0] is the row above band j and [:, j, 1]
-    the row below — zeros at the global edges (label 0 is never a source
-    and level 0 never gates one, so a zero halo is 'no neighbor')."""
-    b, h, w = field.shape
-    nb = h // bh
-    zrow = jnp.zeros((b, 1, w), jnp.int32)
-    up = jnp.concatenate([zrow, field[:, bh - 1::bh][:, :nb - 1]], axis=1)
-    down = jnp.concatenate([field[:, bh::bh], zrow], axis=1)
-    return jnp.stack([up, down], axis=2)
-
-
-def _claim_round_pallas(lab, q, qhalo, level, bh):
-    """One synchronous claim round over (B, H, W) mask-encoded labels via
-    the banded kernel; returns (new_lab, total_changed)."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    b, h, w = lab.shape
-    nb = h // bh
-    halo = _band_halos(lab, bh)
-
-    out, chg = pl.pallas_call(
-        _claim_band_kernel,
-        interpret=_PALLAS_INTERPRET,
-        grid=(b, nb),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),            # level (1,)
-            pl.BlockSpec((1, bh, w), lambda i, j: (i, j, 0)),
-            pl.BlockSpec((1, 1, 2, w), lambda i, j: (i, j, 0, 0)),
-            pl.BlockSpec((1, bh, w), lambda i, j: (i, j, 0)),
-            pl.BlockSpec((1, 1, 2, w), lambda i, j: (i, j, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, bh, w), lambda i, j: (i, j, 0)),
-            pl.BlockSpec((1, nb, 1), lambda i, j: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, h, w), jnp.int32),
-            jax.ShapeDtypeStruct((b, nb, 1), jnp.int32),
-        ],
-    )(level.reshape(1).astype(jnp.int32), lab, halo, q, qhalo)
-    return out, jnp.sum(chg)
-
-
 def _resolve_level(lab, rep, q, mask, level):
     """Finish a level exactly (phase B): conductive-component CC, min
     source label per component, one frontier claim round. Returns
@@ -294,18 +175,6 @@ def _resolve_level(lab, rep, q, mask, level):
     lab = jnp.where(conductive & (lab == 0) & (got < _LAB_SENTINEL),
                     got, lab)
     return _claim_round(lab, q, mask, level), rep, done
-
-
-def _pallas_ok(h: int, w: int) -> int:
-    """Band height for the Pallas claim kernel, or 0 when it doesn't
-    apply. OPT-IN (see _FORCE_PALLAS_CLAIM above: the kernel measured a
-    net loss inside the fused Mesmer program); interpret-mode tests force
-    it on CPU to pin kernel == XLA-round equivalence."""
-    if w % 128 != 0:
-        return 0
-    if not (_FORCE_PALLAS_CLAIM or _PALLAS_INTERPRET):
-        return 0
-    return _band_height(h, w)
 
 
 # ---------------------------------------------------------------------------
@@ -504,8 +373,8 @@ def _flood_minimax(q, markers, mask, levels: int, rounds: int):
     return lab.astype(jnp.int32), done & rdone & fits
 
 
-# engine selector for same-process A/Bs; 'minimax' is the default (r4
-# attach A/B in PERF.md), 'levels' keeps the r3 level-scan available
+# engine selector for same-process A/Bs; 'minimax' is the default,
+# 'levels' keeps the level-scan available
 _ENGINE = "minimax"
 
 
@@ -525,8 +394,7 @@ def flood(q, markers, mask, levels: int, bfs_rounds: int):
 def _quantize_and_flood(image, markers, mask, levels: int,
                         bfs_rounds: int):
     """The full device watershed as ONE jitted program (quantization
-    included — eagerly it is ~a dozen separate ops, each a ~30 ms
-    dispatch on the remote attach)."""
+    included — eagerly it is ~a dozen separate dispatches)."""
     q = _quantize(image.astype(jnp.float32), mask, levels)
     # budget note: optimal-path hop counts exceed h+w only on adversarial
     # winding relief (random-noise plateaus); 2(h+w) covered every case
@@ -536,16 +404,7 @@ def _quantize_and_flood(image, markers, mask, levels: int,
 
 @functools.partial(jax.jit, static_argnames=("levels", "bfs_rounds"))
 def _flood(q, markers, mask, levels: int, bfs_rounds: int):
-    b, h, w = q.shape
-    bh = _pallas_ok(h, w)
     lab0 = jnp.where((markers > 0) & mask, markers.astype(jnp.int32), 0)
-    if bh:
-        # mask-encode for the kernel: -1 pixels are never sources and
-        # never claimed, so the kernel needs no mask operand.
-        # `_resolve_level` (phase B) works unchanged on the encoding —
-        # conductive excludes ~mask, and its claims require lab == 0
-        lab0 = jnp.where(mask, lab0, jnp.int32(-1))
-        qhalo = _band_halos(q, bh)
     # mix q's shard_map varying-ness into the scan carries: markers/mask
     # may be unvarying constants built inside a shard while the claim
     # rounds (functions of q) are varying (see quantiles.masked_order_stats)
@@ -560,10 +419,6 @@ def _flood(q, markers, mask, levels: int, bfs_rounds: int):
             lab, done = carry
 
             def active(lab):
-                if bh:
-                    new, chg = _claim_round_pallas(lab, q, qhalo, level,
-                                                   bh)
-                    return new, chg == 0
                 new = _claim_round(lab, q, mask, level)
                 return new, jnp.all(new == lab)
 
@@ -582,8 +437,6 @@ def _flood(q, markers, mask, levels: int, bfs_rounds: int):
 
     (lab, _), sv_dones = jax.lax.scan(level_body, (lab0, rep0),
                                       jnp.arange(levels, dtype=jnp.int32))
-    if bh:
-        lab = jnp.where(lab == jnp.int32(-1), 0, lab)
     return lab, jnp.all(sv_dones)
 
 

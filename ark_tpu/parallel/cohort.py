@@ -1,10 +1,10 @@
 """FOV-sharded cohort execution: run jitted per-FOV pipelines over a mesh.
 
-This is the TPU-native replacement for the reference's multiprocessing
+This is the device replacement for the reference's multiprocessing
 spawn-Pool FOV fan-out (`pixie_preprocessing.py:391-439` etc.): FOV batches
 are stacked into (B, H, W, C) blocks, the leading axis is sharded over the
 'fov' mesh axis, and one jitted program runs the whole batch; small cohort
-statistics reduce over ICI with psum."""
+statistics reduce across devices with psum."""
 
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ from ark_tpu.parallel import mesh as mesh_utils
 
 # jitted vmap per distinct fn OBJECT: callers that pass the same function
 # repeatedly (module-level per-FOV fns) compile once per shape instead of
-# retracing every call — compiles on the dev attach cost 30 s-10 min, so a
-# per-call jax.jit(...) wrapper would dominate cohort batching
+# retracing every call — a per-call jax.jit(...) wrapper would pay a trace
+# and compile per batch
 _vmapped_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
@@ -131,9 +131,8 @@ def run_fiber_cohort(fov_batches, fov_len=None, blur=2,
     callers run the host multi-Otsu/watershed/label tail per FOV.
 
     Per-shard work only (no collectives). Caveat: under vmap, CLAHE's
-    per-image 1-D histogram scatter-add becomes a batched 2-D scatter —
-    the pattern PERF.md measured as slow on TPU for the watershed kernels.
-    If batched fiber shows up hot on real hardware, flatten the scatter
+    per-image 1-D histogram scatter-add becomes a batched 2-D scatter. If
+    batched fiber shows up hot on the device, flatten the scatter
     with per-image offset ids (`cc.py`'s offset-ids pattern) before
     scaling the batch."""
     from ark_tpu.ops import classical

@@ -1,5 +1,5 @@
 """Cell SOM training + assignment (reference
-`src/ark/phenotyping/cell_som_clustering.py:8-191`); SOM runs on TPU."""
+`src/ark/phenotyping/cell_som_clustering.py:8-191`); SOM runs on device."""
 
 from __future__ import annotations
 

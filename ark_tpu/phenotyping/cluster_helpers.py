@@ -1,13 +1,13 @@
 """Pixie SOM / consensus-cluster orchestration classes.
 
-API-parity layer over the TPU SOM engine (`ark_tpu.ops.som`), mirroring the
+API-parity layer over the device SOM engine (`ark_tpu.ops.som`), mirroring the
 reference's class surface (`src/ark/phenotyping/cluster_helpers.py:52-682`):
 `PixieSOMCluster` (abstract train/map), `PixelSOMCluster` (channel-norm-file
 division), `CellSOMCluster` (99.9% nonzero-quantile normalization),
 `ConsensusCluster` (Monti et al. consensus clustering) and
 `PixieConsensusCluster` (z-score/cap + SOM→meta mapping, 1-indexed).
 
-Differences by design (TPU-first, SURVEY.md §7):
+Differences by design (SURVEY.md §7):
   * SOM training is batch-parallel on device (see ops/som.py) — weight parity
     with pyFlowSOM is distributional, not bitwise; seeded determinism holds
     within this framework.
@@ -90,8 +90,8 @@ class PixieSOMCluster(ABC):
                               num_parallel_obs: int = 1_000_000) -> np.ndarray:
         """Assign 1-indexed SOM clusters to `external_data` rows.
 
-        `num_parallel_obs` is kept for API parity; on TPU the whole array is
-        mapped in one fused kernel (blocking handled by the kernel grid).
+        `num_parallel_obs` is kept for API parity; the whole array is
+        mapped in one device program.
         """
         if num_parallel_obs <= 0:
             raise ValueError("num_parallel_obs specified needs to be greater than 0")
@@ -219,10 +219,49 @@ class CellSOMCluster(PixieSOMCluster):
         return self.cell_data
 
 
+class WardAgglomerative:
+    """Ward-linkage agglomerative clustering into `n_clusters` flat clusters,
+    with the labels of sklearn's `AgglomerativeClustering(n_clusters)` at its
+    defaults (ward, euclidean, full tree). For unstructured ward sklearn
+    builds its tree with `scipy.cluster.hierarchy.ward`; this class does the
+    same and cuts it with sklearn's rule (split the most recently merged
+    cluster until `n_clusters` remain; number clusters in heap order)."""
+
+    def __init__(self, n_clusters: int = 2):
+        self.n_clusters = n_clusters
+
+    def fit_predict(self, data) -> np.ndarray:
+        import heapq
+
+        from scipy.cluster import hierarchy
+
+        data = np.asarray(data)
+        n = data.shape[0]
+        if not 1 <= self.n_clusters <= n:
+            raise ValueError(f"cannot cut {n} samples into "
+                             f"{self.n_clusters} clusters")
+        children = hierarchy.ward(data)[:, :2].astype(np.intp)
+        nodes = [-(int(max(children[-1])) + 1)]
+        for _ in range(self.n_clusters - 1):
+            left, right = children[-nodes[0] - n]
+            heapq.heappush(nodes, -int(left))
+            heapq.heappushpop(nodes, -int(right))
+        labels = np.zeros(n, dtype=np.intp)
+        for i, node in enumerate(nodes):
+            stack = [-node]
+            while stack:
+                v = stack.pop()
+                if v < n:
+                    labels[v] = i
+                else:
+                    stack.extend(children[v - n])
+        return labels
+
+
 class ClusterClassTemplate(Protocol):
     """Structural type for the base clusterer handed to consensus clustering
     (reference `cluster_helpers.py:421-425`): anything exposing
-    `fit_predict()` and `n_clusters` (e.g. sklearn AgglomerativeClustering).
+    `fit_predict()` and `n_clusters` (e.g. `WardAgglomerative`).
     """
 
     def fit_predict(self) -> None: ...
@@ -315,7 +354,6 @@ class PixieConsensusCluster:
 
     def __init__(self, cluster_type: str, input_file: pathlib.Path,
                  columns: List[str], max_k: int = 20, cap: float = 3):
-        from sklearn.cluster import AgglomerativeClustering
         verify_in_list(provided_cluster_type=cluster_type,
                        supported_cluster_types=["pixel", "cell"])
         validate_paths([input_file])
@@ -328,7 +366,7 @@ class PixieConsensusCluster:
         self.max_k = max_k
         self.cap = cap
         # H=10 / 0.8 mirror ConsensusClusterPlus defaults (reference :615-623)
-        self.cc = ConsensusCluster(cluster=AgglomerativeClustering,
+        self.cc = ConsensusCluster(cluster=WardAgglomerative,
                                    L=max_k, K=max_k, H=10,
                                    resample_proportion=0.8)
         self.mapping = None

@@ -3,7 +3,7 @@
 Capability parity with reference `src/ark/phenotyping/pixel_som_clustering.py`
 (train_pixel_som :16-90, cluster_pixels :139-289 with the temp-dir atomic
 swap at :287-289, generate_som_avg_files :308-371). The BMU assignment per FOV
-runs as the fused Pallas kernel on TPU; `multiprocess`/`batch_size` are
+runs as one device program (`ops.som`); `multiprocess`/`batch_size` are
 API-compat no-ops (device throughput replaces the 5-process CPU pool)."""
 
 from __future__ import annotations

@@ -324,7 +324,7 @@ def run_pixel_clustering(fovs, channels, base_dir, tiff_dir, seg_dir=None,
     ``hbm_cache_bytes`` bounds the device-resident cohort working set
     (norm matrices between barriers); FOVs past it spill to a disk stash.
     ``timings``: optional dict — per-phase wall seconds are accumulated
-    into it (profiling aid for benchmarks/r5_fused_ab.py).
+    into it (a profiling aid).
     """
     t_phase = time.perf_counter
     if timings is None:
@@ -445,8 +445,8 @@ def run_pixel_clustering(fovs, channels, base_dir, tiff_dir, seg_dir=None,
     def _prep_resident(fov, raw_host):
         """raw → (norm, rowsums, anynz), cached in HBM or spilled. The
         channel-norm divide runs on HOST because the artifact contract is
-        f32(f64 divide), which the TPU (no f64) cannot produce — the f32
-        device divide differs in the last ulp."""
+        f32(f64 divide) — an f32 device divide differs in the last ulp,
+        and an f64 one needs x64 enabled."""
         dev_prep = jnp.asarray(pixie_preprocessing.channel_norm_divide(
             raw_host, norm_vect_f64))
         norm, rowsums, anynz = _prep_fov_parts(dev_prep,
@@ -656,8 +656,7 @@ def run_pixel_clustering(fovs, channels, base_dir, tiff_dir, seg_dir=None,
             hbm.pop(("norm_keep", f))
     # Depth-2 software pipeline over the per-FOV chain
     #   d2h(norm_keep) → f64 divide → h2d+BMU → labels d2h → feather write
-    # so the relay's transfer legs (network-bound, 1.5-3 s per 64 MB each
-    # way at this attach's 19-49 MB/s) overlap the host CPU legs instead
+    # so the host-device transfer legs overlap the host CPU legs instead
     # of adding to them: FOV i+1's valid-row matrix streams down while
     # FOV i's host tail runs, and FOV i's BMU upload + kernel fly while
     # FOV i-1's arrow build + feather write run on host.

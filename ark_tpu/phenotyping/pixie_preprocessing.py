@@ -9,8 +9,8 @@ boundary when materializing the feather DataFrame.
 
 The reference's `multiprocessing` spawn-Pool FOV fan-out (batch_size=5) is
 replaced by device-side throughput — `multiprocess`/`batch_size` args are kept
-for API compatibility but a single TPU chip outruns the 5-process CPU pool by
-orders of magnitude; cohort-level FOV sharding lives in ark_tpu.parallel.
+for API compatibility; cohort-level FOV sharding lives in
+ark_tpu.parallel.
 
 File/resume contract preserved: per-FOV `.feather` files in `data_dir` and
 `subset_dir`, `channel_norm_pre_rownorm.feather`, `pixel_thresh.feather`, the

@@ -4,7 +4,7 @@ Capability parity with reference `src/ark/phenotyping/weighted_channel_comp.py`
 (compute_p2c_weighted_channel_avg :14-140 — the matmul at :121-123 —,
 compute_cell_cluster_weighted_channel_avg :143-217, generate_wc_avg_files
 :220-313, generate_remap_avg_wc_files :316-411, heatmap :414-498). The matmul
-runs on device (one MXU call over the whole cohort)."""
+runs on device (one matmul over the whole cohort)."""
 
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ percentile or local-adaptive threshold (block size from μm/pixel) →
 remove-small-holes → optional Meijering ridge filter → connected-component
 labeling → area filtering. Blur/ridge/threshold ops run on device
 (ark_tpu.ops.classical); labeling/area filtering are host scipy+bincount
-(a single-image device CC round trip costs ~50x scipy on the attach)."""
+(a single host-resident image would pay a device round trip for a few ms
+of scipy work)."""
 
 from __future__ import annotations
 
@@ -117,9 +118,8 @@ def _create_object_mask(input_image, object_shape_type="blob", sigma: int = 1,
     binary = np.asarray(img2mask_filtered) > 0
     # 8-connected host labeling + bincount area filter — surviving objects
     # keep their ids (reference uses skimage map_array). Host scipy, not
-    # the device CC kernel: this mask is host-resident and a single-image
-    # device round trip measured ~50x slower than scipy on the attach
-    # (PERF.md r3 corrections); numbering is identical either way
+    # the device CC kernel: this mask is host-resident, so a device round
+    # trip would buy nothing; numbering is identical either way
     import scipy.ndimage as ndi
     labeled, _ = ndi.label(binary, structure=np.ones((3, 3)))
     return morphology.area_filter_np(labeled, min_area=min_object_area,

@@ -13,8 +13,8 @@ Sobel elevation → watershed → small-object removal. The whole device side
 (`_fiber_device_program`; exact EDT in `ops/edt.py`) — one device dispatch
 per FOV; the multi-Otsu DP, the native C++ priority-flood, and the
 post-watershed scipy labeling stay on host (a device CC round trip for a
-single host-resident mask costs ~50× scipy on the attach; the device CC
-kernels serve batched/fused contexts — PERF.md r3 corrections)."""
+single host-resident mask buys nothing; the device CC kernels serve
+batched/fused contexts)."""
 
 from __future__ import annotations
 
@@ -72,14 +72,13 @@ def _fiber_device_program(img: jax.Array, ridge_cutoff, *, blur, th, tw,
                           n_tr, n_tc, fiber_widths, sobel_blur):
     """The fiber pipeline's entire device side as ONE fused program:
     blur → normalize → CLAHE → Frangi (all scales) → EDT → blur →
-    Sobel elevation. Eager per-step calls cost a ~30 ms dispatch each on
-    remote TPU attaches (Frangi alone is one per scale); fusing leaves two
-    device dispatches per FOV (this program + the post-watershed CC). The
-    multi-Otsu DP and the priority-flood stay on host — the DP needs 256
-    histogram bins of an array the host needs anyway (threshed markers,
-    debug saves), and the flood is the native C++ kernel. The Sobel
-    elevation map is threshold-independent, so nothing device-side waits
-    on the host DP."""
+    Sobel elevation. Eager per-step calls cost a dispatch each (Frangi
+    alone is one per scale); fusing leaves two device dispatches per FOV
+    (this program + the post-watershed CC). The multi-Otsu DP and the
+    priority-flood stay on host — the DP needs 256 histogram bins of an
+    array the host needs anyway (threshed markers, debug saves), and the
+    flood is the native C++ kernel. The Sobel elevation map is
+    threshold-independent, so nothing device-side waits on the host DP."""
     blurred = image_filters.gaussian_blur(img.astype(jnp.float32),
                                           sigma=blur)
     norm = blurred / jnp.maximum(jnp.max(blurred), 1e-12)
@@ -105,8 +104,8 @@ def _fiber_steps(fiber_channel_data, fov_len, blur, contrast_scaling_divisor,
 
     keep_intermediates=False skips the device->host readback of the
     blurred/contrast/ridge images (only the debug/plot paths consume
-    them — the production cohort loop was paying ~4 full-FOV transfers
-    per FOV over the ~1.6 GB/s attach for nothing); the EDT and
+    them — the production cohort loop would pay ~4 full-FOV transfers per
+    FOV for nothing); the EDT and
     elevation maps are always read back (the host otsu/watershed stages
     need them)."""
     h, w = np.asarray(fiber_channel_data).shape
@@ -140,9 +139,9 @@ def _fiber_steps(fiber_channel_data, fov_len, blur, contrast_scaling_divisor,
         watershed_ops.watershed(elevation_map, threshed.astype(np.int32)) - 1,
         0)
     # host scipy labeling: `segmentation` is already host-resident (post
-    # host-watershed), and a device round trip for CC measured 0.27 s vs
-    # 5 ms at 1024² on the attach (PERF.md r3 corrections); numbering is
-    # identical either way (ops/cc.py is scipy-exact by construction)
+    # host-watershed), so a device round trip for CC buys nothing;
+    # numbering is identical either way (ops/cc.py is scipy-exact by
+    # construction)
     labeled, _ = ndi.label(segmentation)
     labeled_filtered = morphology.remove_small_objects(
         labeled, min_size=min_fiber_size) * segmentation

@@ -3,7 +3,7 @@
 Capability parity with reference
 `src/ark/segmentation/marker_quantification.py` (compute_marker_counts
 :185-350, create_marker_count_matrices :353-452, generate_cell_table
-:455-593) with the TPU-first redesign of SURVEY.md §7 step 4: the reference's
+:455-593) with the device redesign of SURVEY.md §7 step 4: the reference's
 per-cell Python hot loop (:316-348) and skimage regionprops become whole-FOV
 segment reductions on device (ark_tpu.ops.segment_reduce); only convex-hull
 geometry stays on host (ark_tpu.ops.convex). Output feature names/order match
@@ -167,7 +167,7 @@ def _compartment_features(labels: np.ndarray, images, cell_ids: np.ndarray,
     if unsupported:
         warnings.warn(
             f"regionprops features {unsupported} are not implemented by the "
-            f"TPU quantification engine; their columns are zero-filled "
+            f"device quantification engine; their columns are zero-filled "
             f"(supported: moments-derived + convex-hull features, see "
             f"ark_tpu.ops.segment_reduce / ark_tpu.ops.convex)")
     return out
@@ -217,7 +217,7 @@ def assign_single_compartment_features(marker_counts, compartment,
     """Fill one compartment's plane of a marker_counts DataArray with signal
     + regionprops features (capability of reference
     `marker_quantification.py:77-136`). The reference assigns one cell per
-    call inside a hot loop; the TPU redesign assigns ALL cells of the
+    call inside a hot loop; this redesign assigns ALL cells of the
     compartment in a single vectorized call, so `cell_ids` is optional (all
     labels by default) and per-cell args (cell_coords/label_id) don't exist.
     """

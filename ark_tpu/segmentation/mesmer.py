@@ -1,7 +1,7 @@
 """In-process Mesmer segmentation application.
 
 Replaces the reference's DeepCell REST workflow (zip → upload → poll →
-download; `deepcell_service_utils.py:95-343`) with local TPU inference: the
+download; `deepcell_service_utils.py:95-343`) with local device inference: the
 PanopticNet forward pass (ark_tpu.models.unet) runs on channel-stacked FOV
 batches; the deep-watershed instance postprocess runs per FOV — local maxima
 of the predicted inner-distance become markers (a device 3×3 maxpool), then
@@ -31,10 +31,10 @@ from ark_tpu.ops import watershed as watershed_ops
 # Device deep-watershed parameters: 256 claim levels matches the relief
 # resolution the instance tests need (the native kernel's 2^16 buckets are
 # overkill for the [0, 1] inner-distance head). BFS rounds are cheap
-# shifted-min passes (~0.2 ms each at 4x512^2) while one phase-B exact
-# resolution costs ~185 ms in TPU scatter/gather tables — 32 rounds per
-# level keeps phase B at zero invocations on trained-model relief
-# (measured 0.17 s vs 3.7 s at 8 rounds; benchmarks/r3_attach_checks.py).
+# shifted-min passes while one phase-B exact resolution is a scatter/gather
+# CC — 32 rounds per level keeps phase B at zero invocations on
+# trained-model relief (level engine only; the default minimax engine
+# budgets by geometry).
 _DEVICE_WATERSHED_LEVELS = 256
 _DEVICE_WATERSHED_BFS_ROUNDS = 32
 
@@ -43,10 +43,9 @@ _DEVICE_WATERSHED_BFS_ROUNDS = 32
 def _order_stats_bisect(flat: jax.Array, idxs) -> jax.Array:
     """Exact order statistics `sort(flat, -1)[..., i]` for each rank i in
     `idxs`, WITHOUT sorting: 32-step bisection on the monotone uint32 key of
-    the float bits, counting `key <= mid` per step. A full per-slice sort of
-    (H·W) pixels costs as much as the whole Mesmer forward on this TPU
-    (~11.5 ms per 4×512² batch); the counting passes cost ~2.5 ms. top_k is
-    no help (O(n·k) on TPU). Exact to f32 bit patterns — the bisection
+    the float bits, counting `key <= mid` per step, instead of a full
+    per-slice sort of (H·W) pixels. Which is faster on the GPU is not
+    measured. Exact to f32 bit patterns — the bisection
     converges to an element of the slice.
 
     The IEEE754↔monotone-uint32 key transforms are shared with
@@ -107,6 +106,33 @@ def _find_maxima(inner_distance: jax.Array, threshold: float = 0.1) -> jax.Array
     return ((x >= pooled) & (x > threshold))[..., 0]
 
 
+def device_postprocess(res, interior_threshold, min_cell_size):
+    """Deep-watershed postprocess of one `_segment_device` result on the
+    device: marker labeling (batched Shiloach-Vishkin CC), minimax flood,
+    small-object filter. Returns ({compartment: (B, H, W) labels}, done);
+    `done` is False when an internal round budget ran out, and the caller
+    then falls back to the host flood."""
+    out = {}
+    done = jnp.bool_(True)
+    for comp in ("whole_cell", "nuclear"):
+        # maxima plateaus are tiny: the scatter-free small-component
+        # labeler; its flag trips the host fallback if a plateau ever
+        # exceeds the propagation radius
+        markers, _, m_done = cc.label_batched_small(res[comp]["maxima"])
+        fgmask = res[comp]["foreground"] > interior_threshold
+        q = watershed_ops._quantize(-res[comp]["inner"], fgmask,
+                                    _DEVICE_WATERSHED_LEVELS)
+        lab, w_done = watershed_ops.flood(
+            q, markers, fgmask, _DEVICE_WATERSHED_LEVELS,
+            _DEVICE_WATERSHED_BFS_ROUNDS)
+        # 16k labels covers any real FOV's marker count; the in_range flag
+        # trips the host fallback beyond it
+        out[comp], a_ok = cc.area_filter_batched(
+            lab, min_area=min_cell_size, n_max=2 ** 14 - 1)
+        done &= m_done & w_done & a_ok
+    return out, done
+
+
 class Mesmer:
     """Whole-cell + nuclear segmentation from (nuclear, membrane) images."""
 
@@ -123,9 +149,9 @@ class Mesmer:
 
         `dtype=None` means: the checkpoint config's dtype if it records one
         (the mini synthetic checkpoints train and validate in f32), else
-        bfloat16 (the TPU fast path). An explicit dtype always wins — a
-        checkpoint must not silently downgrade a requested bf16 forward to
-        f32 (1/8 MXU rate)."""
+        bfloat16 (the tensor-core fast path). An explicit dtype always wins
+        — a checkpoint must not silently downgrade a requested bf16 forward
+        to f32."""
         if model is not None:
             if weights_path is None and variables is None:
                 raise ValueError(
@@ -153,8 +179,8 @@ class Mesmer:
 
         def _device_step(v, x, maxima_threshold):
             # normalize + forward + per-compartment maxima/foreground in ONE
-            # jitted program: each eager dispatch costs ~30 ms on the remote
-            # attach, and a single program lets segment_fovs overlap the
+            # jitted program: one dispatch per batch, and a single program
+            # lets segment_fovs overlap the
             # whole device side of batch i+1 with batch i's host watershed
             xn = _percentile_normalize(x)
             out = self.model.apply(v, xn, train=False)
@@ -176,32 +202,10 @@ class Mesmer:
         def _device_step_post(v, x, maxima_threshold, interior_threshold,
                               min_cell_size):
             # forward + FULL deep-watershed postprocess in one device
-            # program: marker labeling (batched Shiloach-Vishkin CC),
-            # level-synchronous flood, small-object filter. No host compute
-            # and ONE readback per batch, vs the host path's per-FOV
-            # priority-flood threads (66 ms/core per 1024^2 FOV on this
-            # 1-core host).
-            res = _device_step(v, x, maxima_threshold)
-            out = {}
-            done = jnp.bool_(True)
-            for comp in ("whole_cell", "nuclear"):
-                # maxima plateaus are tiny: the scatter-free small-
-                # component labeler; its flag trips the host fallback if a
-                # plateau ever exceeds the propagation radius
-                markers, _, m_done = cc.label_batched_small(
-                    res[comp]["maxima"])
-                fgmask = res[comp]["foreground"] > interior_threshold
-                q = watershed_ops._quantize(-res[comp]["inner"], fgmask,
-                                            _DEVICE_WATERSHED_LEVELS)
-                lab, w_done = watershed_ops.flood(
-                    q, markers, fgmask, _DEVICE_WATERSHED_LEVELS,
-                    _DEVICE_WATERSHED_BFS_ROUNDS)
-                # 16k labels covers any real FOV's marker count; the
-                # in_range flag trips the host fallback beyond it
-                out[comp], a_ok = cc.area_filter_batched(
-                    lab, min_area=min_cell_size, n_max=2 ** 14 - 1)
-                done &= m_done & w_done & a_ok
-            return out, done
+            # program: no host compute and ONE readback per batch, vs the
+            # host path's per-FOV priority-flood threads.
+            return device_postprocess(_device_step(v, x, maxima_threshold),
+                                      interior_threshold, min_cell_size)
 
         self._segment_device_post = jax.jit(_device_step_post)
 
@@ -257,8 +261,8 @@ class Mesmer:
         NOTE: use the device path with TRAINED weights — a random-init
         model emits garbage relief with ~10k spurious maxima per FOV,
         a pathological tie-heavy regime where the level-synchronous
-        flood's exact resolution grinds (tens of seconds per batch;
-        PERF.md) while the host flood degrades gracefully.
+        flood's exact resolution grinds while the host flood degrades
+        gracefully.
 
         Returns {'whole_cell': (B, H, W) int32 labels,
                  'nuclear': (B, H, W) int32 labels}.
@@ -307,9 +311,9 @@ def segment_fovs(fov_images: np.ndarray, weights_path: Optional[str] = None,
                  **predict_kwargs) -> Dict[str, np.ndarray]:
     """Segment a stack of (N, H, W, 2) FOV images in device batches.
 
-    Double-buffered (VERDICT r2 weak #2): batch i+1's device program is
-    dispatched BEFORE batch i's host watershed postprocess joins, so JAX's
-    async dispatch overlaps device compute with the ~66 ms/FOV host flood —
+    Double-buffered: batch i+1's device program is dispatched BEFORE batch
+    i's host watershed postprocess joins, so JAX's async dispatch overlaps
+    device compute with the host flood —
     the segmentation stage costs ~max(device, host) per batch instead of
     their sum (the reference pays a network round trip per 5-FOV zip here,
     `deepcell_service_utils.py:95-211`).
@@ -339,7 +343,7 @@ def segment_fovs(fov_images: np.ndarray, weights_path: Optional[str] = None,
     if postprocess == "device":
         # double-buffered like the host path: batch i+1's fused program is
         # dispatched before batch i's labels are read back, hiding the
-        # ~30 ms/program dispatch+readback latency behind device compute
+        # dispatch+readback latency behind device compute
         whole, nuc = [], []
         pending = None
         for i in range(0, fov_images.shape[0], batch_size):

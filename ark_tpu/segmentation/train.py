@@ -8,11 +8,9 @@ their own annotations (or the synthetic planted-cell generator) with this
 module. The planted-instance e2e test (`tests/segmentation/test_mesmer.py`)
 proves the trained-net → deep-watershed path recovers real instances.
 
-TPU-first: the entire training schedule is ONE jitted `lax.scan` over
-minibatch indices with the dataset device-resident — a single dispatch on
-the remote attach (a Python step loop costs ~30 ms dispatch per step there,
-see CLAUDE.md), and pure MXU work on real hardware. Multi-chip: wrap the
-returned train step in the same batch-sharded pjit pattern as
+The dataset stays device-resident and each step is one jitted program
+(`scan_chunk` > 1 runs chunks of steps as one `lax.scan` instead).
+Multi-chip: wrap the train step in the same batch-sharded pattern as
 `__graft_entry__.dryrun_multichip` (params replicated, batch over 'fov').
 """
 
@@ -55,21 +53,18 @@ def mesmer_loss(out: Dict[str, jax.Array], targets: Dict[str, jax.Array],
 def fit(model, variables, images: np.ndarray,
         targets: Dict[str, np.ndarray], steps: int = 300,
         batch_size: int = 4, learning_rate: float = 1e-3,
-        seed: int = 42, scan_chunk: Optional[int] = None,
+        seed: int = 42, scan_chunk: int = 1,
         inner_weight: float = 10.0) -> Tuple[Dict, np.ndarray]:
     """Train `model` on (images, targets); returns (variables, loss curve).
 
     Step t takes minibatch rows order[t] (a seeded reshuffle-with-wrap of the
-    dataset). The schedule runs as jitted chunks of `scan_chunk` steps each
-    (a `lax.scan` inside one jit), so the per-step dispatch cost is divided
-    by the chunk length. Auto default: the full schedule in one dispatch on
-    TPU (the remote attach pays ~30 ms per dispatch), plain per-step jit on
-    CPU (a grad-of-scan program compiles ~2.5x slower than the step itself,
-    and CPU dispatch is free — measured 66 s vs 14 s for the mini config).
+    dataset). The default runs one jitted step per dispatch; `scan_chunk`
+    > 1 runs jitted chunks of that many steps (a `lax.scan` inside one jit),
+    dividing the dispatch count by the chunk length. Per-step is the
+    default because a grad-of-scan program compiles far longer than it
+    saves on the GPU for schedules of a few hundred steps (A/B in PERF.md).
     """
     n = images.shape[0]
-    if scan_chunk is None:
-        scan_chunk = steps if jax.default_backend() == "tpu" else 1
     host_rng = np.random.default_rng(seed)
     reps = (steps * batch_size + n - 1) // n
     order = np.concatenate([host_rng.permutation(n) for _ in range(reps)])

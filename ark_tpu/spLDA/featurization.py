@@ -5,7 +5,7 @@ Re-provides the `spatial_lda.featurization` surface the reference calls
 avg_marker, count} reducers, `featurize_samples`, and
 `make_merged_difference_matrices` (Delaunay adjacency reduced to an MST).
 
-TPU-first: each FOV's neighborhood statistic is one masked matmul —
+On device: each FOV's neighborhood statistic is one masked matmul —
 indicator(dist ≤ r) · one-hot/marker matrix on device — instead of the
 reference dependency's per-cell process pool."""
 

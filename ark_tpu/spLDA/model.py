@@ -96,7 +96,7 @@ def em_step_sharded(X, lam, gamma, L, mesh, alpha: float, eta: float,
     """One EM outer iteration with CELLS sharded over the mesh (SURVEY.md
     §2.5: the E-step's (N, V)·(V, K) matmuls are embarrassingly row-
     parallel). Each shard runs the inner gamma fixed-point on its local
-    cells; the M-step sufficient statistics `psum` over ICI; the Laplacian
+    cells; the M-step sufficient statistics `psum` across devices; the Laplacian
     smoothing `all_gather`s the (N, K) topic matrix (K is tiny) so local
     L rows can couple cells across shards.
 

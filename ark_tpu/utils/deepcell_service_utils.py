@@ -3,7 +3,7 @@
 Capability parity with reference `src/ark/utils/deepcell_service_utils.py`:
 `generate_deepcell_input` (:347-408, identical 2-channel TIFF contract) and
 `create_deepcell_output` (:95-211) — but the network round trip (zip upload →
-remote GPU → redis poll → zip download) is replaced by in-process TPU
+remote GPU → redis poll → zip download) is replaced by in-process device
 inference via `ark_tpu.segmentation.mesmer`. File contract preserved:
 `<fov>_whole_cell.tiff` / `<fov>_nuclear.tiff` int32 masks in
 `deepcell_output_dir`. The `host`/`job_type`/`timeout` arguments are accepted
@@ -71,7 +71,7 @@ def generate_deepcell_input(data_dir, tiff_dir, nuc_channels, mem_channels,
 def zip_input_files(deepcell_input_dir, fov_group, batch_num):
     """Zip one batch of `<fov>.tiff` inputs into `fovs_batch_<n>.zip`
     (reference :17-40 contract; skip-if-exists). Kept for drop-in parity —
-    the in-process TPU path doesn't need zips, but external batch services
+    the in-process path doesn't need zips, but external batch services
     and archival workflows do."""
     from zipfile import ZIP_DEFLATED, ZipFile
 
@@ -92,11 +92,9 @@ def run_deepcell_direct(input_dir, output_dir, host=None, job_type="mesmer",
     write `deepcell_response_fovs_batch_<n>.zip` of `<fov>_feature_0.tif` /
     `<fov>_feature_1.tif` masks to `output_dir` (the exact artifact the
     remote service returns). `host`/`timeout` are accepted and ignored."""
-    import io as _io
     from zipfile import ZIP_DEFLATED, ZipFile
 
-    from PIL import Image
-
+    from ark_tpu.io.image_utils import encode_tiff
     from ark_tpu.segmentation.mesmer import Mesmer
 
     batch_name = os.path.splitext(os.path.basename(input_dir))[0]
@@ -116,10 +114,8 @@ def run_deepcell_direct(input_dir, output_dir, host=None, job_type="mesmer",
     with ZipFile(out_zip, "w", compression=ZIP_DEFLATED) as zout:
         for i, fov in enumerate(fov_names):
             for feature, key in ((0, "whole_cell"), (1, "nuclear")):
-                buf = _io.BytesIO()
-                Image.fromarray(preds[key][i].astype(np.int32)).save(
-                    buf, format="TIFF")
-                zout.writestr(f"{fov}_feature_{feature}.tif", buf.getvalue())
+                zout.writestr(f"{fov}_feature_{feature}.tif",
+                              encode_tiff(preds[key][i].astype(np.int32)))
     return 0
 
 
@@ -155,13 +151,9 @@ def extract_deepcell_response(deepcell_output_dir, fov_group, batch_num,
 
 def read_image_bytes(data: bytes) -> np.ndarray:
     """Decode an in-memory TIFF (all pages) to an ndarray."""
-    import io as _io
+    from ark_tpu.io.image_utils import decode_image
 
-    from PIL import Image, ImageSequence
-
-    img = Image.open(_io.BytesIO(data))
-    frames = [np.asarray(f) for f in ImageSequence.Iterator(img)]
-    return frames[0] if len(frames) == 1 else np.stack(frames)
+    return decode_image(data)
 
 
 def create_deepcell_output(deepcell_input_dir, deepcell_output_dir, fovs=None,

@@ -3,7 +3,7 @@
 The reference returns `xarray.DataArray` objects from its loaders and analysis
 stages (e.g. `alpineer.load_utils.load_imgs_from_tree`,
 `ark/analysis/spatial_analysis_utils.py:17-64`). xarray is not available in
-this environment, and the TPU-native core works on raw `jnp`/`np` arrays
+this environment, and the array core works on raw `jnp`/`np` arrays
 anyway — so the API boundary uses this small container: named dims, per-dim
 coordinate labels, `.sel()`/`.loc`-style selection, netCDF-free `.to_h5()`
 persistence (h5py), and zero-copy `.values` access.

@@ -1,24 +1,10 @@
 """Same-process A/B of Mesmer head/pyramid resize dtype at 1024²/b2.
 
-PERF.md r3 flagged the full-res head stages as the remaining Mesmer perf
-frontier at 1024² (~16% MFU vs 42% at 512²). Three candidate designs were
-measured on the real attach (CLAUDE.md protocol: reps inside one scan,
-weight-side anti-replay dependency, best-of-3, one process per comparison):
-
-  1. dense_0+bn_0 folded below the final upsample (exact reordering, the
-     64→128 matmul on ¼ px): LOSES — 155 ms with f32 resize (9×!), 13.5 ms
-     with bf16 resize vs 11.7 ms unfolded. The resize dominates the head
-     and the fold doubles its channel count.
-  2. elementwise shifted-lerp 2× upsample instead of jax.image.resize's
-     dense interpolation matmuls: LOSES 1.7× (28.0 vs 16.8 ms) — the
-     stack+reshape interleave relayouts cost more than MXU matmuls (same
-     lesson as the BMU argmin layout finding).
-  3. resize in the model dtype (bf16) instead of upcasting to f32: WINS
-     1.47× (17.2 → 11.7 ms); f32 matmuls run at 1/8 MXU rate and the
-     result was being rounded back to bf16 anyway.  << shipped
-
-This script measures (3) against the old f32 behavior, both in the
-published head order.
+The full-resolution head stages are the largest part of the Mesmer
+forward at 1024². This script measures resizing in the model dtype (bf16,
+the default) against upcasting every pyramid/head resize to f32
+(`unet.RESIZE_IN_F32`), both in the published head order, in one process:
+reps inside one scan, best-of-3. Not yet measured on the GPU.
 
 Usage: python benchmarks/head_fold_ab.py [size] [batch]
 """
@@ -79,8 +65,8 @@ def main():
         return timed(f, x, variables)
 
     res = {}
-    # both variants in ONE process (cross-process comparisons are invalid
-    # on this attach — CLAUDE.md trap #3); timed() is best-of-3 per variant
+    # both variants in ONE process (a second process may land on another
+    # card or clock); timed() is best-of-3 per variant
     unet.RESIZE_IN_F32 = True
     res["f32resize_s"] = run()
     unet.RESIZE_IN_F32 = False

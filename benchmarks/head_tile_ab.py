@@ -1,10 +1,8 @@
 """Same-process A/B: spatially TILED semantic heads at 1024²/b2.
 
-PERF.md r3: Mesmer runs 42% MFU at 512²/b16 but ~16% at 1024²/b2 with
-identical per-pixel FLOPs — a working-set effect (the full-res head
-intermediates are 16× larger; XLA's fusion tiling plausibly fails and
-spills (1024, 1024, 64..128)-channel bf16 intermediates to HBM between
-head stages). Hypothesis tested here: computing each semantic head in
+Hypothesis: the full-res head intermediates at 1024² are 16× larger than
+at 256², and XLA may spill (1024, 1024, 64..128)-channel bf16
+intermediates to device memory between head stages. Tested here: computing each semantic head in
 TxT spatial tiles (each tile ~512²-sized, the regime where XLA already
 achieves 42% MFU) restores fusibility at the cost of ~2-3% halo
 recompute. The tiled head is EXACT, not an approximation: per-stage halo
@@ -15,20 +13,14 @@ interpolation matrices, so every output element equals the untiled head's
 (verified by --check on the CPU backend in f32, atol 1e-5; bf16 runs may
 differ in bf16 rounding only).
 
-Prior head experiments (benchmarks/head_fold_ab.py): dense-below-upsample
-LOSES, elementwise lerp upsample LOSES, model-dtype resize WINS 1.47x
-(shipped). Do not integrate tiling without this A/B winning on the attach.
-
-RESULT (attach, 2026-08-18, same-process best-of-3): tiling LOSES —
-1024²/b2 tiles=2: 0.928x, tiles=4: 0.883x (standard 11.9-12.1 ms vs tiled
-13.0-13.5 ms per forward). The halo recompute + per-tile einsum overhead
-exceed the working-set savings; XLA's own 1024² schedule wins. NOT
-integrated; the exactness harness stays (tests/models/test_head_tile.py).
+Do not integrate tiling without this A/B winning on the card. On the GPU
+it is not measured yet; the exactness harness is
+tests/models/test_head_tile.py.
 
 
 Usage:
   python benchmarks/head_tile_ab.py --check          # CPU exactness
-  python benchmarks/head_tile_ab.py [size] [batch] [tiles]   # attach A/B
+  python benchmarks/head_tile_ab.py [size] [batch] [tiles]   # device A/B
 """
 
 import json

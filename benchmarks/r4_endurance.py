@@ -1,16 +1,20 @@
-"""Hardware endurance run (VERDICT r3 #5): a 100-FOV 1024² cohort through
-segment → pixel-cluster → cell-cluster → spatial enrichment ON THE REAL
-CHIP, driven through the actual template entry points (disk IO included),
-with a forced mid-run kill + resume of the segmentation stage to certify
-crash-resume at scale.
+"""Endurance run: a 100-FOV 1024² cohort through segment → pixel-cluster
+→ cell-cluster → spatial enrichment on the accelerator, driven through the
+actual template entry points (disk IO included), with a forced mid-run
+kill + resume of the segmentation stage to certify crash-resume at scale.
 
-Wall-clock notes: cohort synthesis + TIFF IO run on this 1-core host and
-dominate; per-stage FOV/s is reported separately so device throughput and
-host IO are distinguishable. Watchdog-probes the attach first (outage mode
-hangs even jax.devices(); CLAUDE.md).
+One process per card: template 1 runs in child processes, and this
+parent does not import JAX until the last child has exited — a JAX
+process reserves most of the card's memory when it first uses it, so a
+parent on the card would starve the child. Stages 2-4 then run in this
+process.
+
+Wall-clock notes: cohort synthesis + TIFF IO run on the host and
+dominate; per-stage times are reported separately so device throughput
+and host IO are distinguishable.
 
 Usage: python benchmarks/r4_endurance.py [--fovs 100] [--size 1024]
-       [--base /tmp/ark_endurance]
+       [--base DIR]
 """
 
 import argparse
@@ -20,6 +24,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,16 +43,6 @@ CHANNELS = ["CD3", "CD4", "CD8", "CD14", "CD20", "CD31", "CD38", "CD45",
             "SMA", "Vim"]
 CKPT = os.path.join(REPO, "ark_tpu", "models", "checkpoints",
                     "mesmer_mini_synthetic.npz")
-
-
-def probe_attach():
-    """Reuses bench.py's watchdog (handles the observed outage mode where
-    jax.devices() hangs forever — a raw TimeoutExpired here would escape
-    as a traceback with no diagnostic)."""
-    from bench import _probe_attach
-    err = _probe_attach()
-    if err:
-        raise RuntimeError(err)
 
 
 def build_cohort(base, fovs, size):
@@ -98,9 +93,8 @@ def run_segment_with_kill(base, fovs, kill_after_s):
             "kill_after_s": kill_after_s}
 
 
-def main(n_fovs=100, size=1024, base="/tmp/ark_endurance", fresh=True,
-         kill_after=None):
-    probe_attach()
+def main(n_fovs=100, size=1024, base=None, fresh=True, kill_after=None):
+    base = base or os.path.join(tempfile.gettempdir(), "ark_endurance")
     if fresh and os.path.isdir(base):
         shutil.rmtree(base)
     os.makedirs(base, exist_ok=True)
@@ -118,7 +112,8 @@ def main(n_fovs=100, size=1024, base="/tmp/ark_endurance", fresh=True,
         kill_after_s=kill_after or (150 if n_fovs <= 8 else 360)))
     print(f"[segment] {res}", flush=True)
 
-    # stages 2-4 in-process (this process now owns the attach)
+    # stages 2-4 in-process: the template-1 children have exited, so this
+    # process is now the only one on the card
     import importlib
 
     import pandas as pd
@@ -178,7 +173,8 @@ if __name__ == "__main__":
     p = argparse.ArgumentParser()
     p.add_argument("--fovs", type=int, default=100)
     p.add_argument("--size", type=int, default=1024)
-    p.add_argument("--base", default="/tmp/ark_endurance")
+    p.add_argument("--base", default=None,
+                   help="cohort dir (default: <tmpdir>/ark_endurance)")
     p.add_argument("--keep", action="store_true",
                    help="reuse an existing cohort dir")
     p.add_argument("--kill_after", type=int, default=None,

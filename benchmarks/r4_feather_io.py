@@ -1,11 +1,10 @@
-"""A/B: arrow-Table per-FOV pixie passes vs the pandas round trip (r4).
+"""A/B: arrow-Table per-FOV pixie passes vs the pandas round trip.
 
-The 100-FOV endurance run (PERF.md) showed the pixel stage is host-IO
-bound: each of ~5 cohort passes reads and rewrites a ~70 MB feather per
-FOV, and the arrow→pandas→arrow conversion of the ~20 untouched columns
-was most of that. This bench times one realistic FOV (1024² pixels ×
+The pixel stage is host-IO bound: each of ~5 cohort passes reads and
+rewrites a ~70 MB feather per FOV, and the arrow→pandas→arrow conversion
+of the ~20 untouched columns is much of that. This bench times one realistic FOV (1024² pixels ×
 16 channels + fov/row/col/label columns) through each pass both ways,
-on the host only (no TPU needed for the label passes; the SOM pass runs
+on the host only (no accelerator needed for the label passes; the SOM pass runs
 its BMU on CPU identically in both engines so the delta is still IO).
 
 Usage: python benchmarks/r4_feather_io.py [--side 1024] [--reps 3]

@@ -1,5 +1,4 @@
-"""Attach throughput for the kernels VERDICT-r3 flagged as unmeasured
-(weak #3): UMAP embed, device exact t-SNE, k-means multi-restart, and the
+"""Device throughput of UMAP embed, device exact t-SNE, k-means multi-restart, and the
 fused fiber device pipeline — each against its installed host equivalent.
 
 Host comparisons (what a CPU user of the reference stack pays):
@@ -16,11 +15,9 @@ Host comparisons (what a CPU user of the reference stack pays):
   scipy sobel) feeding the SAME host otsu/watershed/label tail the
   production path uses.
 
-Measurement protocol (CLAUDE.md traps): every timed surface here returns
-host numpy, so the value readback IS the barrier; anti-replay input
-variants are materialized OUTSIDE the timed window; best-of-3 trials;
-repo-local persistent compile cache so remote compiles don't pollute
-timings (first warm call pays them once).
+Measurement protocol: every timed surface here returns host numpy, so the
+value readback IS the barrier; input variants are materialized OUTSIDE the
+timed window; best-of-3 trials after a warm call that pays the compile.
 
 Usage: python benchmarks/r4_kernel_bench.py [--only umap,tsne,kmeans,fiber]
 """
@@ -37,14 +34,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 
-def _setup_cache():
-    import jax
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                     ".xla_cache"))
-
-
 def _best_of(fn, variants):
     best = float("inf")
     for v in variants:
@@ -55,8 +44,8 @@ def _best_of(fn, variants):
 
 
 def _variants(arr, n=3):
-    """Anti-replay: distinct inputs per trial, materialized before timing
-    (the host multiply must stay outside the window on this 1-core box)."""
+    """Distinct inputs per trial, materialized before timing (the host
+    multiply must stay outside the window)."""
     return [np.ascontiguousarray(arr * (1.0 + 1e-4 * (t + 1)))
             for t in range(n)]
 
@@ -287,7 +276,6 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--only", default="umap,tsne,kmeans,fiber")
     args = p.parse_args()
-    _setup_cache()
     import jax
     out = {"backend": jax.default_backend()}
     todo = args.only.split(",")

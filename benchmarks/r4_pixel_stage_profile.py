@@ -1,11 +1,9 @@
 """Per-substage profile of the pixie pixel stage at 1024² FOV scale.
 
-The 100-FOV endurance run recorded 3577 s for the whole pixel stage
-(~36 s/FOV) but only stage-level wall; the label passes measured in
-`r4_feather_io.py` are ≤1 s/FOV each, so something else dominates. This
-driver builds N synthetic 1024²×16ch FOVs (TIFF tree + label masks, like
-the endurance cohort) and times each substage of template 2 separately on
-the attach, so the next IO optimization targets the real dominator.
+An endurance run records only stage-level wall. This driver builds N
+synthetic 1024²×16ch FOVs (TIFF tree + label masks, like the endurance
+cohort) and times each substage of template 2 separately, so the next IO
+optimization targets the real dominator.
 
 Usage: python benchmarks/r4_pixel_stage_profile.py [--n 4] [--size 1024]
 """
@@ -22,7 +20,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
-from r4_kernel_bench import _setup_cache  # noqa: E402
 
 CHANNELS = [f"chan{i}" for i in range(16)]
 
@@ -50,7 +47,6 @@ def build_cohort(base, fovs, size, rng):
 
 
 def main(n_fovs=4, size=1024):
-    _setup_cache()
     from ark_tpu.phenotyping import (pixel_meta_clustering,
                                      pixel_som_clustering,
                                      pixie_preprocessing)

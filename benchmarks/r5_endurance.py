@@ -1,24 +1,20 @@
-"""Round-5 full-pipeline endurance run: the r4 protocol (100×1024²×16
-through segment → pixel → cell → spatial on the real chip, mid-run
-SIGKILL + resume) rerun with this round's engines picked up through the
-SAME template entry points — fused single-sweep pixel stage (template-2
-default), shape-bucketed + pipelined spatial stage, and per-FOV
-cell-table checkpointing (templates/1_segment_image_data.py:50-58).
+"""Full-pipeline endurance run: the protocol of benchmarks/r4_endurance.py
+(100×1024²×16 through segment → pixel → cell → spatial on the accelerator,
+mid-run SIGKILL + resume) through the template entry points — fused
+single-sweep pixel stage (template-2 default), shape-bucketed + pipelined
+spatial stage, and per-FOV cell-table checkpointing
+(templates/1_segment_image_data.py:50-58) — plus a timed rerun of
+template 1 after the pipeline completes. With the per-FOV parts checkpoint
+that rerun only re-reads parts + concatenates (`quant_rerun_s`).
 
-Two additions over benchmarks/r4_endurance.py (which this wraps):
-
-1. After the pipeline completes, template 1 is rerun in a fresh
-   subprocess and timed. In r4 this rerun redid the entire cell-table
-   quantification (~716 s at 100 FOVs — VERDICT-r4 weak #3); with the
-   per-FOV parts checkpoint it must now only re-read parts + concat
-   (the "redoes ~0 s" done-criterion, recorded as `quant_rerun_s`).
-2. The r4 stage walls are recorded alongside for the round-over-round
-   comparison (cross-run caveat as in r5_fused_endurance.py: host IO
-   dominates every stage being compared, and the fused-pixel mechanism
-   is separately certified by a controlled ABBA).
+One process per card: this parent never imports JAX. The pipeline runs in
+one child (benchmarks/r4_endurance.py), the template-1 rerun in another,
+each started only after the previous one has exited — a JAX process
+reserves most of the card's memory when it first uses it, so two at once
+would starve the second.
 
 Usage: python benchmarks/r5_endurance.py [--fovs 100] [--size 1024]
-       [--out ENDURANCE_r05.json]
+       [--out endurance.json]
 """
 
 import argparse
@@ -26,17 +22,14 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
 
-import r4_endurance  # noqa: E402
-
-R4 = {"cohort_build_s": 292.7, "segment_wall_s": 1331.1,
-      "pixel_stage_s": 3577.0, "cell_stage_s": 39.8,
-      "spatial_stage_s": 444.9, "total_pipeline_s": 5392.8}
+import r4_endurance  # noqa: E402  (constants only; imports no JAX)
 
 
 def rerun_template1(base):
@@ -61,20 +54,21 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--fovs", type=int, default=100)
     ap.add_argument("--size", type=int, default=1024)
-    ap.add_argument("--base", default="/tmp/ark_endurance_r5")
+    ap.add_argument("--base", default=os.path.join(tempfile.gettempdir(),
+                                                   "ark_endurance_r5"))
     ap.add_argument("--keep", action="store_true")
     ap.add_argument("--kill_after", type=int, default=600)
-    ap.add_argument("--out", default=os.path.join(REPO,
-                                                  "ENDURANCE_r05.json"))
+    ap.add_argument("--out", default="endurance.json")
     a = ap.parse_args()
 
-    res = r4_endurance.main(a.fovs, a.size, a.base, fresh=not a.keep,
-                            kill_after=a.kill_after)
+    cmd = [sys.executable, os.path.join(HERE, "r4_endurance.py"),
+           "--fovs", str(a.fovs), "--size", str(a.size), "--base", a.base,
+           "--kill_after", str(a.kill_after)] + (["--keep"] if a.keep else [])
+    run = subprocess.run(cmd, stdout=subprocess.PIPE, text=True)
+    sys.stdout.write(run.stdout)
+    assert run.returncode == 0, "pipeline child failed"
+    res = json.loads(run.stdout.strip().splitlines()[-1])
     res["quant_rerun_s"] = rerun_template1(a.base)
-    res["r4_reference"] = R4
-    if a.fovs == 100 and a.size == 1024:
-        res["speedup_vs_r4_total"] = round(
-            R4["total_pipeline_s"] / res["total_pipeline_s"], 2)
     res["date"] = time.strftime("%Y-%m-%d %H:%M")
     with open(a.out, "w") as f:
         json.dump(res, f, indent=1)

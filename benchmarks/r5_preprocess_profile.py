@@ -1,7 +1,7 @@
-"""Sub-substage profile of pixie preprocessing at 1024² (round 5).
+"""Sub-substage profile of pixie preprocessing at 1024².
 
-`r4_pixel_stage_profile.py` showed preprocess = 159 s of the 204 s pixel
-stage (4 FOVs) — ~40 s/FOV with ms-scale device work. This times the
+Preprocessing is the largest substage of `r4_pixel_stage_profile.py`
+with ms-scale device work per FOV. This times the
 pieces inside `create_pixel_matrix`: the two cohort percentile passes,
 and per FOV the TIFF load, device blur/rownorm, DataFrame build, feather
 writes, and the post-rownorm pandas quantile.
@@ -21,12 +21,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
-from r4_kernel_bench import _setup_cache  # noqa: E402
 from r4_pixel_stage_profile import CHANNELS, build_cohort  # noqa: E402
 
 
 def main(n_fovs=2, size=1024):
-    _setup_cache()
     import jax.numpy as jnp
     import pandas as pd
     from ark_tpu.io import feather_utils as feather

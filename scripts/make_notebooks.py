@@ -536,7 +536,7 @@ NOTEBOOKS["example_pairwise_spatial_enrichment.ipynb"] = [
        "enrichment (the reference README's "
        "`example_pairwise_spatial_enrichment.ipynb`; the notebook is "
        "absent from the reference snapshot — rebuilt here over the "
-       "TPU-vmapped permutation engine)."),
+       "vmapped device permutation engine)."),
     code("import os\n\nimport pandas as pd\n\n"
          "from ark_tpu.analysis import (spatial_analysis_utils,\n"
          "                              spatial_enrichment)"),

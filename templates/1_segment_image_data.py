@@ -1,7 +1,7 @@
 """Pipeline template 1: segmentation + cell-table generation.
 
-TPU-native equivalent of `templates/1_Segment_Image_Data.ipynb`: Mesmer runs
-in-process on the TPU instead of via the deepcell.org REST service; marker
+Equivalent of `templates/1_Segment_Image_Data.ipynb`: Mesmer runs
+in-process on the accelerator instead of via the deepcell.org REST service; marker
 quantification runs as device segment reductions. Run as a script or copy
 cells into a notebook.
 
@@ -40,7 +40,7 @@ def main(base_dir, nuc_channels, mem_channels, img_sub_folder=None,
         deepcell_input_dir, tiff_dir, nuc_channels, mem_channels, fovs,
         img_sub_folder=img_sub_folder)
 
-    # 2. segment on TPU (whole-cell + nuclear masks); weights_path=None runs
+    # 2. segment on device (whole-cell + nuclear masks); weights_path=None runs
     # the full Mesmer architecture (convert published weights via
     # models/convert_deepcell.py, or pass a trained checkpoint)
     deepcell_service_utils.create_deepcell_output(

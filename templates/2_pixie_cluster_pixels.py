@@ -1,8 +1,8 @@
 """Pipeline template 2: Pixie pixel clustering.
 
-TPU-native equivalent of `templates/2_Pixie_Cluster_Pixels.ipynb`:
-preprocessing is one fused jitted program per FOV; SOM training and BMU
-assignment run on the TPU (Pallas fused kernel).
+Equivalent of `templates/2_Pixie_Cluster_Pixels.ipynb`: preprocessing is
+one fused jitted program per FOV; SOM training and BMU assignment run on
+the device.
 
 Usage:
     python templates/2_pixie_cluster_pixels.py --base_dir /data/cohort \
@@ -48,7 +48,7 @@ def main(base_dir, channels, fovs=None, img_sub_folder=None,
         pixel_output_dir=pixel_output_dir, blur_factor=blur_factor,
         subset_proportion=subset_proportion, seed=seed)
 
-    # 2. train SOM + assign clusters (fused Pallas BMU kernel)
+    # 2. train SOM + assign clusters (device BMU search)
     pixel_pysom = pixel_som_clustering.train_pixel_som(
         fovs, channels, base_dir,
         norm_vals_name="channel_norm_post_rownorm.feather", seed=seed)

@@ -1,6 +1,7 @@
 """Pipeline template 3: Pixie cell clustering (equivalent of
 `templates/3_Pixie_Cluster_Cells.ipynb`): per-cell pixel-cluster counts →
-cell SOM → consensus meta clusters → weighted channel expression."""
+cell SOM → consensus meta clusters → weighted channel expression.
+`main` returns the per-cell table with its SOM and meta cluster labels."""
 
 import argparse
 import os
@@ -81,6 +82,7 @@ def main(base_dir, channels, cell_table_path, fovs=None,
     # cell_cluster_utils.add_consensus_labels_cell_table(
     #     base_dir, cell_table_path, cell_som_input_data)
     print("cell clustering complete")
+    return cell_som_input_data
 
 
 if __name__ == "__main__":

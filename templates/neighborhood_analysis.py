@@ -26,7 +26,7 @@ def main(base_dir, cell_table_path, distlim=50, cluster_num=6):
     freqs.to_csv(os.path.join(base_dir, "neighborhood_freqs.csv"),
                  index=False)
 
-    # 3. k sweep (TPU k-means) + final clustering
+    # 3. k sweep (device k-means) + final clustering
     inertia = neighborhood_analysis.compute_cluster_metrics_inertia(counts)
     print("inertia sweep:", dict(zip(inertia.coords["cluster_num"],
                                      inertia.values)))

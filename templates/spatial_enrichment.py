@@ -1,6 +1,6 @@
 """Pipeline template: pairwise spatial enrichment (rebuilds the reference's
-`example_pairwise_spatial_enrichment.ipynb` workflow around the TPU-vmapped
-permutation-test kernel)."""
+`example_pairwise_spatial_enrichment.ipynb` workflow around the vmapped
+device permutation-test kernel)."""
 
 import argparse
 import os

@@ -8,13 +8,13 @@ by deepcell.org (`src/ark/utils/deepcell_service_utils.py:214-343`);
 correctly if every layer reproduces the TF/keras forward convention it was
 trained under. Each convention is pinned here against a HAND-DERIVED
 fixture (an independent numpy implementation of the TF rule, or frozen
-literals worked out by hand) — never against the flax code's own output:
+literals worked out by hand) — never against the model code's own output:
 
   (a) stride-2 SAME conv: TF pads total = (out-1)*s + k - in split
       begin = total//2 (extra on the BOTTOM/RIGHT for even inputs)
   (b) keras ResNet50 stem: ZeroPadding2D(3) + 7x7/2 VALID conv (differs
       from SAME), ZeroPadding2D(1) + 3x3/2 VALID maxpool (zero pad ==
-      flax -inf pad only because the input is post-relu)
+      the model's -inf pad only because the input is post-relu)
   (c) bilinear resize: TF2 half-pixel centers, in = (out+0.5)*in/out - 0.5
       with clamped gather (keras UpSampling2D(bilinear) / UpsampleLike both
       call tf.image.resize)
@@ -35,8 +35,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import flax.linen as nn
-
 from ark_tpu.models import convert_deepcell as cd
 from ark_tpu.models import unet
 
@@ -45,6 +43,15 @@ MANIFEST = os.path.join(os.path.dirname(__file__),
 
 
 # ---------------------------------------------------------------- oracles
+
+def _conv(x, kern, strides, padding):
+    """The model's own conv layer on a given float32 kernel, no bias."""
+    scope = unet._Scope({"conv": {"kernel": jnp.asarray(kern)}}, {}, None,
+                        (), False, None)
+    return unet._conv(scope, "conv", jnp.asarray(x), kern.shape[-1],
+                      kern.shape[:2], jnp.float32, strides=strides,
+                      padding=padding, use_bias=False)
+
 
 def tf_same_pad(in_size: int, k: int, s: int):
     """TF's SAME padding rule (tensorflow nn_ops): total pad needed for
@@ -97,7 +104,7 @@ def tf_bilinear_resize_2d(img, th, tw):
 
 @pytest.mark.parametrize("in_size", [5, 6, 7, 8])
 def test_same_conv_stride2_matches_tf_padding(in_size):
-    """flax padding='SAME' must place the asymmetric extra pad at the
+    """padding='SAME' must place the asymmetric extra pad at the
     bottom/right exactly like TF (even inputs: (0, 1) for k=3, s=2). The
     FPN's P6/P7 stride-2 SAME convs ride on this."""
     rng = np.random.default_rng(1000 + in_size)
@@ -108,9 +115,7 @@ def test_same_conv_stride2_matches_tf_padding(in_size):
     xp = np.pad(x, ((lo, hi), (lo, hi), (0, 0)))
     expected = np_conv2d_valid(xp, kern, 2)
 
-    conv = nn.Conv(4, (3, 3), strides=(2, 2), padding="SAME",
-                   use_bias=False, dtype=jnp.float32)
-    got = conv.apply({"params": {"kernel": jnp.asarray(kern)}}, x[None])[0]
+    got = _conv(x[None], kern, (2, 2), "SAME")[0]
     np.testing.assert_allclose(np.asarray(got), expected, rtol=2e-5,
                                atol=1e-5)
 
@@ -125,7 +130,7 @@ def test_same_pad_rule_is_bottom_right_heavy():
 # ------------------------------------------------------- (b) keras stem
 
 def test_stem_conv_is_zeropad3_valid_not_same():
-    """keras ResNet50 conv1 = ZeroPadding2D(3) + 7x7/2 VALID. The flax
+    """keras ResNet50 conv1 = ZeroPadding2D(3) + 7x7/2 VALID. The model's
     stem uses explicit padding=[(3,3),(3,3)] — equal to the keras form and
     DIFFERENT from SAME on even inputs (SAME would pad (2, 3))."""
     rng = np.random.default_rng(7)
@@ -134,16 +139,11 @@ def test_stem_conv_is_zeropad3_valid_not_same():
 
     expected = np_conv2d_valid(np.pad(x, ((3, 3), (3, 3), (0, 0))), kern, 2)
 
-    conv = nn.Conv(4, (7, 7), strides=(2, 2), padding=[(3, 3), (3, 3)],
-                   use_bias=False, dtype=jnp.float32)
-    got = conv.apply({"params": {"kernel": jnp.asarray(kern)}}, x[None])[0]
+    got = _conv(x[None], kern, (2, 2), [(3, 3), (3, 3)])[0]
     np.testing.assert_allclose(np.asarray(got), expected, rtol=2e-5,
                                atol=2e-5)
 
-    same = nn.Conv(4, (7, 7), strides=(2, 2), padding="SAME",
-                   use_bias=False, dtype=jnp.float32)
-    got_same = same.apply({"params": {"kernel": jnp.asarray(kern)}},
-                          x[None])[0]
+    got_same = _conv(x[None], kern, (2, 2), "SAME")[0]
     assert got.shape == got_same.shape  # both 'same'-sized outputs...
     assert not np.allclose(np.asarray(got), np.asarray(got_same))  # ...but
     # a different pixel alignment: regressing the stem to SAME would shift
@@ -163,19 +163,17 @@ def np_maxpool_zeropad(x, pad, k, s):
 
 def test_stem_maxpool_zeropad_equivalence_post_relu():
     """keras pool1 = ZeroPadding2D(1) + 3x3/2 VALID maxpool (zero pad);
-    flax max_pool pads -inf. Equal on post-relu input (reals >= 0 always
+    the model's max pool pads -inf. Equal on post-relu input (reals >= 0 always
     dominate a zero pad) — and provably NOT equal on signed input, so the
     relu precondition in the stem is load-bearing."""
     rng = np.random.default_rng(11)
     x = np.abs(rng.normal(size=(9, 9, 2))).astype(np.float32)  # post-relu
     expected = np_maxpool_zeropad(x, 1, 3, 2)
-    got = nn.max_pool(jnp.asarray(x)[None], (3, 3), strides=(2, 2),
-                      padding=((1, 1), (1, 1)))[0]
+    got = unet._max_pool_3x3_s2(jnp.asarray(x)[None])[0]
     np.testing.assert_array_equal(np.asarray(got), expected)
 
     signed = x - 2.0  # all-negative corners: zero pad would win in keras
-    got_signed = nn.max_pool(jnp.asarray(signed)[None], (3, 3),
-                             strides=(2, 2), padding=((1, 1), (1, 1)))[0]
+    got_signed = unet._max_pool_3x3_s2(jnp.asarray(signed)[None])[0]
     assert not np.array_equal(np.asarray(got_signed),
                               np_maxpool_zeropad(signed, 1, 3, 2))
 
@@ -225,20 +223,20 @@ def test_bn_epsilon_constants_are_keras_values():
 
 def test_bn_inference_hand_math_discriminates_epsilon():
     """var=0 makes the output 1/sqrt(eps)-scaled, so the wrong epsilon
-    (flax's 1e-5 default vs keras' 1.001e-5) is a measurable 0.05% shift —
-    the hand-math fixture must match the keras value and reject the flax
-    default at the discriminating tolerance."""
+    (a common 1e-5 default vs keras' 1.001e-5) is a measurable 0.05% shift
+    — the hand-math fixture must match the keras value and reject the
+    1e-5 default at the discriminating tolerance."""
     x = np.array([[1.5, -0.25]], np.float32)
     gamma = np.array([2.0, 3.0], np.float32)
     beta = np.array([0.5, -1.0], np.float32)
     mean = np.array([0.25, 0.25], np.float32)
     var = np.zeros(2, np.float32)
 
-    bn = nn.BatchNorm(use_running_average=True, momentum=0.9,
-                      epsilon=unet.BACKBONE_BN_EPSILON, dtype=jnp.float32)
-    got = bn.apply({"params": {"scale": gamma, "bias": beta},
-                    "batch_stats": {"mean": mean, "var": var}},
-                   jnp.asarray(x))
+    scope = unet._Scope({"bn": {"scale": gamma, "bias": beta}},
+                        {"bn": {"mean": mean, "var": var}}, None, (), False,
+                        None)
+    got = unet._batch_norm(scope, "bn", jnp.asarray(x)[None, None],
+                           unet.BACKBONE_BN_EPSILON, jnp.float32)[0, 0]
     expected = gamma * (x - mean) / np.sqrt(var + 1.001e-5) + beta
     np.testing.assert_allclose(np.asarray(got), expected, rtol=1e-6)
     wrong = gamma * (x - mean) / np.sqrt(var + 1e-5) + beta

@@ -22,8 +22,8 @@ def test_init_mesmer_heads_and_params(tmp_path):
 
 
 def test_model_dtype_resize_tracks_f32_resize():
-    """The pyramid/head resizes run in the model dtype (1.47× at 1024² on
-    TPU — benchmarks/head_fold_ab.py); on a bf16 model the outputs must
+    """The pyramid/head resizes run in the model dtype (A/B in
+    benchmarks/head_fold_ab.py); on a bf16 model the outputs must
     stay within bf16 rounding of the old upcast-to-f32-resize behavior,
     and an f32 model must be bitwise unaffected by the switch."""
     mini = dict(stage_sizes=(1, 1, 1, 1), base_width=16, fpn_channels=64,

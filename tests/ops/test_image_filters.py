@@ -61,8 +61,8 @@ def test_masked_quantile_per_column(rng):
 
 
 # ---------------------------------------------------------------------------
-# Round-2: sort-free bisection quantiles (the TPU default) must be
-# bit-identical to the numpy/sort path on every semantic variant.
+# Sort-free bisection quantiles (the only quantile path) must be
+# bit-identical to XLA's sort-based quantile on every semantic variant.
 # ---------------------------------------------------------------------------
 
 def test_bisect_quantiles_bitwise_match_sort_paths(rng):
@@ -76,15 +76,17 @@ def test_bisect_quantiles_bitwise_match_sort_paths(rng):
     x[:, 4] = 0.0                      # all-zero column -> NaN
     valid = rng.random(4000) < 0.6
     for q in (0.05, 0.5, 0.99, 0.999):
-        a = np.asarray(qs.nonzero_quantile_per_column(jnp.asarray(x), q))
-        b = np.asarray(qs.nonzero_quantile_per_column_bisect(
-            jnp.asarray(x), q))
+        xs = jnp.asarray(x)
+        a = np.asarray(jnp.nanquantile(jnp.where(xs == 0, jnp.nan, xs), q,
+                                       axis=0))
+        b = np.asarray(qs.nonzero_quantile_per_column(xs, q))
         np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
         np.testing.assert_allclose(a[:4], b[:4], rtol=0, atol=0)
-        c = np.asarray(qs.masked_quantile_per_column(
-            jnp.asarray(x), jnp.asarray(valid), q))
-        d = np.asarray(qs.masked_quantile_per_column_bisect(
-            jnp.asarray(x), jnp.asarray(valid), q))
+        bad = (~jnp.asarray(valid)[:, None]) | (xs == 0)
+        c = np.asarray(jnp.nanquantile(jnp.where(bad, jnp.nan, xs), q,
+                                       axis=0))
+        d = np.asarray(qs.masked_quantile_per_column(
+            xs, jnp.asarray(valid), q))
         np.testing.assert_allclose(c[:4], d[:4], rtol=0, atol=0)
         # flat variants (incl. negative values for the key flip)
         y = rng.normal(size=3000).astype(np.float32)
@@ -102,8 +104,8 @@ def test_bisect_quantile_degenerate_inputs(rng):
     from ark_tpu.ops import quantiles as qs
 
     one = jnp.asarray(np.array([[3.5]], np.float32))
-    out1 = np.asarray(qs.nonzero_quantile_per_column_bisect(one, 0.999))
+    out1 = np.asarray(qs.nonzero_quantile_per_column(one, 0.999))
     assert out1.tolist() == [3.5]
     allzero = jnp.zeros((10, 2), jnp.float32)
-    out = np.asarray(qs.nonzero_quantile_per_column_bisect(allzero, 0.5))
+    out = np.asarray(qs.nonzero_quantile_per_column(allzero, 0.5))
     assert np.isnan(out).all()

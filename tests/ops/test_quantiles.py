@@ -1,17 +1,33 @@
 """Oracle tests for ark_tpu.ops.quantiles.
 
-Both code paths are exercised against NumPy's linear-interpolation quantile
+The 32-pass counting bisection on order-preserving float bit-keys (the only
+quantile path) is checked against NumPy's linear-interpolation quantile
 semantics (the reference contract: `np.quantile` in
 `pixel_cluster_utils.py:44-52,104` and pandas `.replace(0, nan).quantile` in
-`pixie_preprocessing.py:407`): the XLA-sort path the CPU backend selects, and
-the TPU's 32-pass counting bisection on order-preserving float bit-keys,
-called directly so the suite proves bit-level agreement between the two.
+`pixie_preprocessing.py:407`), and bit for bit against XLA's sort-based
+`jnp.nanquantile` on the same f32 inputs.
 """
 
 import numpy as np
 import pytest
 
 from ark_tpu.ops import quantiles as q_ops
+
+
+def _sort_nonzero_per_column(x, q):
+    """XLA's sort-based quantile with the same zero/NaN-ignoring rule."""
+    import jax.numpy as jnp
+    x = jnp.asarray(x, jnp.float32)
+    return np.asarray(jnp.nanquantile(jnp.where(x == 0, jnp.nan, x), q,
+                                      axis=0))
+
+
+def _sort_masked_per_column(x, valid, q):
+    import jax.numpy as jnp
+    x = jnp.asarray(x, jnp.float32)
+    bad = (~jnp.asarray(valid)[:, None]) | (x == 0)
+    return np.asarray(jnp.nanquantile(jnp.where(bad, jnp.nan, x), q,
+                                      axis=0))
 
 
 def _pandas_nonzero_quantile(x, q):
@@ -69,16 +85,16 @@ def test_masked_per_column_matches_numpy(rng):
 
 
 # ---------------------------------------------------------------------------
-# The TPU bisection path, called explicitly on CPU: must agree with the sort
-# path bit-for-bit on the same f32 inputs.
+# The bisection must agree with XLA's sort-based quantile bit-for-bit on the
+# same f32 inputs.
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("q", [0.0, 0.05, 0.5, 0.999, 1.0])
 def test_bisect_matches_sort_path_exactly(rng, q):
     x = rng.normal(scale=100.0, size=(513, 9)).astype(np.float32)
     x[rng.random(x.shape) < 0.25] = 0.0
-    bis = np.asarray(q_ops.nonzero_quantile_per_column_bisect(x, q))
-    srt = np.asarray(q_ops.nonzero_quantile_per_column(x, q))
+    bis = np.asarray(q_ops.nonzero_quantile_per_column(x, q))
+    srt = _sort_nonzero_per_column(x, q)
     np.testing.assert_allclose(bis, srt, rtol=1e-6, atol=0)
 
 
@@ -111,7 +127,7 @@ def test_single_element_and_tied_inputs():
     np.testing.assert_allclose(
         np.asarray(q_ops.nonzero_quantile_per_column(one, 0.999)), [3.25])
     ties = np.full((50, 2), 2.5, np.float32)
-    got = np.asarray(q_ops.nonzero_quantile_per_column_bisect(ties, 0.37))
+    got = np.asarray(q_ops.nonzero_quantile_per_column(ties, 0.37))
     np.testing.assert_array_equal(got, [2.5, 2.5])
 
 
@@ -119,8 +135,8 @@ def test_masked_bisect_matches_masked_sort(rng):
     x = rng.random((222, 6)).astype(np.float32)
     x[rng.random(x.shape) < 0.15] = 0.0
     valid = rng.random(222) < 0.7
-    bis = np.asarray(q_ops.masked_quantile_per_column_bisect(x, valid, 0.999))
-    srt = np.asarray(q_ops.masked_quantile_per_column(x, valid, 0.999))
+    bis = np.asarray(q_ops.masked_quantile_per_column(x, valid, 0.999))
+    srt = _sort_masked_per_column(x, valid, 0.999)
     np.testing.assert_allclose(bis, srt, rtol=1e-6, atol=0)
 
 
@@ -137,13 +153,13 @@ def test_bisect_nan_semantics_match_sort_paths(rng):
     m[rng.random(m.shape) < 0.2] = 0.0
     m[5, 0] = np.nan
     m[9, 2] = np.nan
-    bis = np.asarray(q_ops.nonzero_quantile_per_column_bisect(m, 0.9))
-    srt = np.asarray(q_ops.nonzero_quantile_per_column(m, 0.9))
+    bis = np.asarray(q_ops.nonzero_quantile_per_column(m, 0.9))
+    srt = _sort_nonzero_per_column(m, 0.9)
     np.testing.assert_allclose(bis, srt, rtol=1e-6, atol=0)
     want = _pandas_nonzero_quantile(m, 0.9)
     np.testing.assert_allclose(bis, want, rtol=1e-5, atol=1e-5)
 
     valid = rng.random(100) < 0.7
-    bis_m = np.asarray(q_ops.masked_quantile_per_column_bisect(m, valid, 0.9))
-    srt_m = np.asarray(q_ops.masked_quantile_per_column(m, valid, 0.9))
+    bis_m = np.asarray(q_ops.masked_quantile_per_column(m, valid, 0.9))
+    srt_m = _sort_masked_per_column(m, valid, 0.9)
     np.testing.assert_allclose(bis_m, srt_m, rtol=1e-6, atol=0)

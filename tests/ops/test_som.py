@@ -26,27 +26,26 @@ def test_bmu_xla_matches_numpy(rng):
     np.testing.assert_allclose(np.asarray(dist), d_np.min(1), rtol=1e-4, atol=1e-4)
 
 
-def test_bmu_pallas_interpret_matches_xla(rng):
-    # Pallas kernels run in interpret mode on CPU
-    from jax.experimental.pallas import tpu as pltpu
+def test_som_map_async_matches_som_map(rng):
+    """The dispatch-only mapping is the same executable as `som_map`."""
     data = rng.random((300, 10)).astype(np.float32)
     w = rng.random((100, 10)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        idx_p, dist_p = som.bmu_pallas(jnp.asarray(w), jnp.asarray(data), block_n=256)
-    idx_x, dist_x = som.bmu_xla(jnp.asarray(w), jnp.asarray(data))
-    np.testing.assert_array_equal(np.asarray(idx_p), np.asarray(idx_x))
-    np.testing.assert_allclose(np.asarray(dist_p), np.asarray(dist_x), rtol=1e-4,
-                               atol=1e-4)
+    idx = np.asarray(som.som_map_async(w, data))
+    clusters, _ = som.som_map(w, data, return_dist=False)
+    np.testing.assert_array_equal(idx + 1, clusters)
+    clusters_d, dist = som.som_map(w, data)
+    np.testing.assert_array_equal(clusters_d, clusters)
+    assert dist.shape == (300,)
 
 
 def test_som_map_one_indexed(rng):
     data = rng.random((50, 4)).astype(np.float32)
     w = rng.random((100, 4)).astype(np.float32)
-    clusters, dists = som.som_map(w, data, impl="xla")
+    clusters, dists = som.som_map(w, data)
     assert clusters.min() >= 1 and clusters.max() <= 100
     assert dists.shape == (50,)
     # empty input -> empty output (cluster_helpers.py:159-161 contract)
-    c0, d0 = som.som_map(w, np.empty((0, 4)), impl="xla")
+    c0, d0 = som.som_map(w, np.empty((0, 4)))
     assert c0.size == 0
 
 
@@ -56,7 +55,7 @@ def test_som_train_separates_clusters(rng):
                       batch_size=256)
     assert w.shape == (100, 6)
     assert np.isfinite(w).all()
-    clusters, _ = som.som_map(w, data, impl="xla")
+    clusters, _ = som.som_map(w, data)
     # purity: each true cluster should map to a dominant SOM-node set disjoint
     # from other true clusters' dominant nodes
     node_sets = []
@@ -81,9 +80,9 @@ def test_som_train_quantization_error_improves(rng):
     data, _ = _clustered_data(rng, n_per=300)
     key = jax.random.PRNGKey(0)
     w_rand = np.asarray(jax.random.uniform(key, (100, 6)))
-    _, d_rand = som.som_map(w_rand, data, impl="xla")
+    _, d_rand = som.som_map(w_rand, data)
     w = som.som_train(data, num_passes=2, seed=42)
-    _, d_trained = som.som_map(w, data, impl="xla")
+    _, d_trained = som.som_map(w, data)
     assert d_trained.mean() < 0.5 * d_rand.mean()
 
 
@@ -120,8 +119,8 @@ def test_som_train_sharded_distributionally_matches_single(rng):
     w_single = som.som_train(data, num_passes=2, seed=42, batch_size=256)
     w_sharded = som.som_train_sharded(data, mesh, num_passes=2, seed=42,
                                       batch_size=256)
-    _, d_single = som.som_map(w_single, held_out, impl="xla")
-    _, d_sharded = som.som_map(w_sharded, held_out, impl="xla")
+    _, d_single = som.som_map(w_single, held_out)
+    _, d_sharded = som.som_map(w_sharded, held_out)
     assert d_sharded.mean() < 1.25 * d_single.mean() + 1e-4
     # weights_init path: deterministic given identical init + seed
     w_a = som.som_train_sharded(data, mesh, seed=7, weights_init=w_single)
@@ -136,7 +135,7 @@ def test_som_train_sharded_full_loop(rng):
     w = som.som_train_sharded(data, mesh, num_passes=2, batch_size=256,
                               seed=42)
     assert w.shape == (100, 4)
-    clusters, _ = som.som_map(w, data, impl="xla")
+    clusters, _ = som.som_map(w, data)
     # same purity check as the single-device trainer
     node_sets = []
     for i in range(4):
@@ -154,7 +153,7 @@ def test_som_train_and_map_fused_matches_two_call_path(rng):
     w_fused, clusters_fused, dist_fused = som.som_train_and_map(data, seed=3)
     w_ref = som.som_train(data, seed=3)
     np.testing.assert_array_equal(w_fused, w_ref)
-    clusters_ref, dist_ref = som.som_map(w_ref, data, impl="xla")
+    clusters_ref, dist_ref = som.som_map(w_ref, data)
     np.testing.assert_array_equal(clusters_fused, clusters_ref)
     np.testing.assert_array_equal(dist_fused, dist_ref)
     assert clusters_fused.shape == (1000,)

@@ -1,4 +1,4 @@
-"""SOM engine edge cases: fallback paths, init variants, schedule knobs,
+"""SOM engine edge cases: wide shapes, init variants, schedule knobs,
 and the native watershed's degenerate inputs."""
 
 import numpy as np
@@ -22,19 +22,15 @@ def test_som_map_empty_and_single_row(rng):
     assert clusters[0] == want
 
 
-def test_bmu_pallas_falls_back_for_large_shapes(rng):
-    """>128 nodes or >128 channels route to the XLA path, same results."""
-    data = rng.random((50, 130)).astype(np.float32)     # C > 128
-    w = rng.random((30, 130)).astype(np.float32)
-    idx, dist = som_ops.bmu_pallas(jnp.asarray(w), jnp.asarray(data))
-    idx_ref, dist_ref = som_ops.bmu_xla(jnp.asarray(w), jnp.asarray(data))
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(idx_ref))
-
-    w_big = rng.random((200, 8)).astype(np.float32)     # K > 128
-    data2 = rng.random((64, 8)).astype(np.float32)
-    idx2, _ = som_ops.bmu_pallas(jnp.asarray(w_big), jnp.asarray(data2))
-    idx2_ref, _ = som_ops.bmu_xla(jnp.asarray(w_big), jnp.asarray(data2))
-    np.testing.assert_array_equal(np.asarray(idx2), np.asarray(idx2_ref))
+@pytest.mark.parametrize("k,c", [(30, 130), (200, 8)])
+def test_bmu_wide_shapes_match_numpy(rng, k, c):
+    """More than 128 nodes or channels: exact argmin against numpy."""
+    data = rng.random((64, c)).astype(np.float32)
+    w = rng.random((k, c)).astype(np.float32)
+    idx, dist = som_ops.bmu_xla(jnp.asarray(w), jnp.asarray(data))
+    d_np = ((data[:, None, :].astype(np.float64) - w[None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(np.asarray(idx), d_np.argmin(1))
+    np.testing.assert_allclose(np.asarray(dist), d_np.min(1), rtol=1e-4)
 
 
 def test_som_train_weights_init_and_empty(rng):

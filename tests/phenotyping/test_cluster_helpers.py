@@ -145,3 +145,26 @@ class TestConsensusCluster:
         pcc.save_som_to_meta_map(tmp_path / "map.feather")
         m = feather.read_dataframe(tmp_path / "map.feather")
         assert list(m.columns) == ["pixel_som_cluster", "pixel_meta_cluster"]
+
+
+@pytest.mark.parametrize("n,k,dtype,dups", [
+    (40, 2, np.float64, False), (120, 7, np.float32, False),
+    (60, 20, np.float64, True), (25, 25, np.float64, False),
+    (30, 1, np.float32, True)])
+def test_ward_agglomerative_labels_match_sklearn(n, k, dtype, dups):
+    """Same labels, numbering included, as sklearn's default
+    AgglomerativeClustering, which consensus clustering used to call."""
+    from sklearn.cluster import AgglomerativeClustering
+
+    rng = np.random.default_rng(n * 31 + k)
+    x = rng.normal(size=(n, 5)).astype(dtype)
+    if dups:
+        x[n // 2:] = x[:n - n // 2]       # exact duplicate rows: tied merges
+    want = AgglomerativeClustering(n_clusters=k).fit_predict(x)
+    got = cluster_helpers.WardAgglomerative(n_clusters=k).fit_predict(x)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ward_agglomerative_rejects_bad_cluster_count():
+    with pytest.raises(ValueError):
+        cluster_helpers.WardAgglomerative(n_clusters=5).fit_predict(np.zeros((3, 2)))

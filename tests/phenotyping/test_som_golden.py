@@ -1,7 +1,7 @@
 """Distributional golden tests for the SOM + consensus clustering engine.
 
 The reference validates its SOM path against pyFlowSOM goldens; a
-batch-parallel TPU SOM converges to different (equally valid) weights, so —
+batch-parallel device SOM converges to different (equally valid) weights, so —
 per SURVEY.md §7 hard-part (b) — parity here is asserted at the
 *distribution* level: cluster-average tables must recover planted mixture
 structure, assignments must be pure, and the Monti consensus matrix must be

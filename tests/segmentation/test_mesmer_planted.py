@@ -34,7 +34,7 @@ def test_checkpoint_config_roundtrip(trained_app):
 
 def test_checkpoint_dtype_precedence():
     """Explicit dtype beats the checkpoint config (a checkpoint must not
-    silently downgrade a requested bf16 forward to f32 — 1/8 MXU rate);
+    silently downgrade a requested bf16 forward to f32);
     with dtype=None the checkpoint's recorded f32 applies."""
     import jax.numpy as jnp
 

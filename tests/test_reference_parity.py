@@ -118,7 +118,7 @@ def test_every_reference_public_symbol_has_a_home(rel):
 # diverges. Names listed here are still checked for *existence* above.
 SIGNATURE_ALLOWLIST = {
     # reference's deepcell client takes service/network knobs (timeout,
-    # zip_size); the in-process TPU path replaces them with model knobs
+    # zip_size); the in-process path replaces them with model knobs
     ("utils/deepcell_service_utils", "create_deepcell_output"):
         "REST-service knobs (timeout, zip_size) dropped; in-process model",
     ("utils/deepcell_service_utils", "run_deepcell_direct"):
